@@ -4,12 +4,15 @@ Counterpart of ``odtk_tpu/backbones/resnet.py``. Module names follow
 torchvision's state_dict keys (conv1, bn1, layer{1-4}.{i}.conv{j}/bn{j}/
 downsample.{0,1}), so checkpoints written by the JAX package load with
 ``strict=True``. The stem is ``conv1`` (7x7/s2) followed by the fused
-BN + ReLU + max-pool kernel of ``ops/kernels/stem.py``.
+BN + ReLU + max-pool kernel of ``ops/kernels/stem.py``: the primal kernel
+without autograd, the argmax forward and routing backward when grad is
+enabled (``conv1`` trains through it).
 """
 
+import torch
 from torch import nn
 
-from ..ops.kernels.stem import bn_relu_pool
+from ..ops.kernels.stem import bn_relu_pool, bn_relu_pool_train
 from .fpn import FPN
 from .layers import FixedBatchNorm
 from .registry import register
@@ -97,7 +100,8 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         scale, shift = self.bn1.fold()
-        x = bn_relu_pool(self.conv1(x), scale, shift)
+        pool = bn_relu_pool_train if torch.is_grad_enabled() else bn_relu_pool
+        x = pool(self.conv1(x), scale, shift)
         x = self.layer1(x)
         c3 = self.layer2(x)
         c4 = self.layer3(c3)

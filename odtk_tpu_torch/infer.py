@@ -1,8 +1,8 @@
 """Inference / evaluation workflow on one device.
 
 Counterpart of ``odtk_tpu/infer.py`` for a checkpoint model and one
-process (``world == 1``). Batches come from the JAX package's
-framework-free ``DataIterator`` on the u8 eval feed; each batch goes to
+process (``world == 1``). Batches come from the port's copy of the
+``DataIterator`` on the u8 eval feed; each batch goes to
 the device from pinned host memory with a non-blocking copy, the whole
 normalize -> backbone -> heads -> decode -> NMS path runs there, and the
 results stay on the device until the gather after the last batch, so the
@@ -22,10 +22,10 @@ import time
 import numpy as np
 import torch
 
-from odtk_tpu.data import CocoEvaluator, DataIterator
+from .data import CocoEvaluator, DataIterator
 
 
-class _BatchClock:
+class BatchClock:
     """Marks the end of each batch's queued work; ``intervals_ms`` after
     the gather gives the time between consecutive marks."""
 
@@ -56,7 +56,7 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     """Run inference on the images in ``path``. Returns a dict:
     ``stats``, the COCO stats when ``annotations`` are given and there
     are detections, else None; ``batch_ms``, the intervals between
-    consecutive batches (see ``_BatchClock``)."""
+    consecutive batches (see ``BatchClock``)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device cuda requested but no CUDA device is '
@@ -94,7 +94,7 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
 
     pin = device.type == 'cuda'
     results = []
-    clock = _BatchClock(device)
+    clock = BatchClock(device)
     for data, ids, ratios, sizes in data_iterator:
         images = torch.from_numpy(data)
         sizes = torch.from_numpy(sizes)

@@ -3,9 +3,14 @@
 Schema (``odtk_tpu/io/checkpoint.py``): {backbone: [names], classes,
 state_dict, ratios, scales, [angles], iteration, optimizer, scheduler}.
 ``state_dict`` holds fp32 CPU tensors under torch names with OIHW
-kernels, so files round-trip with the JAX package in both directions.
-Files are read with ``torch.load(weights_only=True)``; the JAX package's
-``optimizer`` entry is msgpack ``bytes``, which that accepts.
+kernels, so the model half of a file round-trips with the JAX package in
+both directions. ``scheduler`` is ``{'last_iter': iteration}`` in both.
+``optimizer`` is framework-specific: this package writes a
+``torch.optim`` state_dict, the JAX package msgpack ``bytes`` of its
+optax state. Neither reads the other's: the port's trainer starts the
+momentum fresh from a JAX-written file (with a warning), and the JAX
+trainer cannot resume from a port-written one. Files are read with
+``torch.load(weights_only=True)``, which accepts both.
 """
 
 import os
@@ -19,6 +24,17 @@ def _check_ext(path):
     if os.path.splitext(path)[1] not in _TORCH_EXTS:
         raise ValueError(f'{path}: only .pth / .torch checkpoints are '
                          'supported by odtk_tpu_torch')
+
+
+def _to_cpu(obj):
+    """Tensors anywhere in nested dicts / lists moved to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
 
 def save(model, state):
@@ -35,10 +51,18 @@ def save(model, state):
     }
     for key in ('iteration', 'optimizer', 'scheduler'):
         if key in state:
-            checkpoint[key] = state[key]
+            checkpoint[key] = _to_cpu(state[key])
     tmp = path + '.tmp'
     torch.save(checkpoint, tmp)
     os.replace(tmp, path)
+
+
+def read(filename):
+    """The checkpoint dict of ``filename``, tensors on the CPU."""
+    if not os.path.isfile(filename):
+        raise ValueError('No checkpoint {}'.format(filename))
+    _check_ext(filename)
+    return torch.load(filename, map_location='cpu', weights_only=True)
 
 
 def load(filename, device='cpu'):
@@ -46,10 +70,7 @@ def load(filename, device='cpu'):
     state holding iteration / optimizer / scheduler where present."""
     from ..model import Model
 
-    if not os.path.isfile(filename):
-        raise ValueError('No checkpoint {}'.format(filename))
-    _check_ext(filename)
-    checkpoint = torch.load(filename, map_location='cpu', weights_only=True)
+    checkpoint = read(filename)
     if 'angles' in checkpoint:
         raise NotImplementedError(
             f'{filename} is a rotated-box model; odtk_tpu_torch runs '

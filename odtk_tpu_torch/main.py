@@ -1,70 +1,261 @@
 #!/usr/bin/env python3
-"""odtk-tpu-torch CLI: infer.
+"""odtk-tpu-torch CLI: train, infer.
 
-Flag-compatible with ``odtk-tpu infer`` (``odtk_tpu/main.py``) for
-checkpoint models, plus ``--device`` (default ``cuda``). With ``cuda``
-and no card it raises; ``--device cpu`` runs the plain PyTorch versions
-of the kernels on the CPU. ``train`` and ``export`` are not ported yet.
+Flag-compatible with ``odtk-tpu train`` and ``odtk-tpu infer``
+(``odtk_tpu/main.py``) for checkpoint models, plus ``--device`` (default
+``cuda``). With ``cuda`` and no card it raises; ``--device cpu`` runs the
+plain PyTorch versions of the kernels on the CPU. The flags of what is
+not ported yet raise and name the ROADMAP item; ``--with-dali`` and
+``--with-apex`` are compatibility no-ops, as in the JAX CLI. ``export``
+is not ported yet.
 """
 
 import argparse
 import os
+import random
 import sys
+
+# flag -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    'rotated_bbox': 'Queue 1 item 5 (the rotated slice)',
+    'absolute_angle': 'Queue 1 item 5 (the rotated slice)',
+    'anchor_angles': 'Queue 1 item 5 (the rotated slice)',
+    'backbone_weights': 'Queue 1 item 3 (backbone weight import)',
+    'logdir': 'Queue 1 item 9 (TensorBoard and metrics in train)',
+    'post_metrics': 'Queue 1 item 9 (TensorBoard and metrics in train)',
+    'profile_dir': 'Queue 1 item 9 (TensorBoard and metrics in train)',
+}
+
+
+def _add_common(parser):
+    parser.add_argument('--device', type=str, default='cuda',
+                        help='torch device to run on (default cuda; cpu '
+                             'runs the plain versions of the kernels)')
+    parser.add_argument('--with-dali', help='(compat no-op: the threaded '
+                        'host loader is always on)', action='store_true')
+    parser.add_argument('--with-apex', help='(compat no-op: bf16 mixed '
+                        'precision is the default)', action='store_true')
 
 
 def parse(args):
     import torch
 
     parser = argparse.ArgumentParser(
-        description='ODTK-TPU (PyTorch + CUDA port): RetinaNet inference.')
+        description='ODTK-TPU (PyTorch + CUDA port): RetinaNet training '
+                    'and inference.')
+    parser.add_argument('--master', metavar='address:port', type=str,
+                        help='coordinator endpoint for multi-host runs '
+                             '(not ported: world 1 only)',
+                        default='127.0.0.1:29500')
+    parser.add_argument('--num-hosts', metavar='n', type=int, default=1,
+                        help='number of host processes (not ported: 1)')
+    parser.add_argument('--host-id', metavar='i', type=int, default=0,
+                        help='this process index when multi-host')
     subparsers = parser.add_subparsers(help='sub-command', dest='command')
     subparsers.required = True
     devcount = max(1, torch.cuda.device_count())
 
-    parser_infer = subparsers.add_parser('infer', help='run inference')
-    parser_infer.add_argument('model', type=str,
-                              help='checkpoint (.pth) to run')
-    parser_infer.add_argument('--images', metavar='path', type=str,
-                              help='directory of images to process',
-                              default='.')
-    parser_infer.add_argument('--annotations', metavar='annotations',
-                              type=str,
-                              help='COCO-JSON ground truth; enables mAP '
-                                   'scoring')
-    parser_infer.add_argument('--output', metavar='file', type=str,
-                              nargs='+',
-                              help='where to write the detection JSON output',
-                              default=['detections.json'])
-    parser_infer.add_argument('--batch', metavar='size', type=int,
-                              help='images per forward pass',
-                              default=2 * devcount)
-    parser_infer.add_argument('--resize', metavar='scale', type=int,
-                              help='target shorter-side length in pixels',
-                              default=800)
-    parser_infer.add_argument('--max-size', metavar='max', type=int,
-                              help='cap on the longer side after resizing',
-                              default=1333)
-    parser_infer.add_argument('--full-precision',
-                              help='disable bf16 mixed precision',
-                              action='store_true')
-    parser_infer.add_argument('--threshold', metavar='value', type=float,
-                              default=None, help='score threshold')
-    parser_infer.add_argument('--detections', metavar='num', type=int,
-                              default=None,
-                              help='max detections per image')
-    parser_infer.add_argument('--fixed-size', metavar='height width',
-                              type=int, nargs='+', default=None,
-                              help='letterbox inputs to a fixed canvas: one '
-                                   'value for square, or height width')
-    parser_infer.add_argument('--device', type=str, default='cuda',
-                              help='torch device to run on (default cuda; '
-                                   'cpu runs the plain versions of the '
-                                   'kernels)')
+    pt = subparsers.add_parser('train', help='train a network')
+    pt.add_argument('model', type=str,
+                    help='checkpoint to write (resumes if it already exists)')
+    pt.add_argument('--annotations', metavar='path', type=str, required=True,
+                    help='COCO-JSON annotation file for the training images')
+    pt.add_argument('--images', metavar='path', type=str, default='.',
+                    help='directory containing the training images')
+    pt.add_argument('--backbone', action='store', type=str, nargs='+',
+                    default=['ResNet50FPN'],
+                    help='one or more backbone names from the registry')
+    pt.add_argument('--classes', metavar='num', type=int, default=80,
+                    help='object classes in the dataset')
+    pt.add_argument('--batch', metavar='size', type=int, default=2 * devcount,
+                    help='batch size')
+    pt.add_argument('--resize', metavar='scale', type=int, default=800,
+                    help='target shorter-side length in pixels')
+    pt.add_argument('--max-size', metavar='max', type=int, default=1333,
+                    help='cap on the longer side after resizing')
+    pt.add_argument('--jitter', metavar='min max', type=int, nargs=2,
+                    default=[640, 1024],
+                    help='randomize the shorter side within this range')
+    pt.add_argument('--iters', metavar='number', type=int, default=90000,
+                    help='total optimizer steps')
+    pt.add_argument('--milestones', action='store', type=int, nargs='*',
+                    default=[60000, 80000],
+                    help='steps at which the learning rate is multiplied by '
+                         'gamma')
+    pt.add_argument('--schedule', metavar='scale', type=float, default=1,
+                    help='stretch/shrink factor applied to iters and '
+                         'milestones')
+    pt.add_argument('--full-precision', action='store_true',
+                    help='disable bf16 mixed precision')
+    pt.add_argument('--lr', metavar='value', type=float, default=0.01,
+                    help='base SGD learning rate')
+    pt.add_argument('--warmup', metavar='iterations', type=int, default=1000,
+                    help='steps of linear learning-rate ramp-up')
+    pt.add_argument('--gamma', metavar='value', type=float, default=0.1,
+                    help='learning-rate multiplier at each milestone')
+    pt.add_argument('--override', action='store_true',
+                    help='start fresh even if the checkpoint file exists')
+    pt.add_argument('--val-annotations', metavar='path', type=str,
+                    help='COCO-JSON annotations for periodic validation')
+    pt.add_argument('--val-images', metavar='path', type=str,
+                    help='directory with validation images')
+    pt.add_argument('--val-iters', metavar='number', type=int, default=8000,
+                    help='run validation every this many steps')
+    pt.add_argument('--fine-tune', metavar='path', type=str,
+                    help='checkpoint to warm-start from (final class conv '
+                         're-initialized)')
+    pt.add_argument('--no-pretrained', action='store_true',
+                    help='(always so here: a fresh model starts from a '
+                         'random init; no weights are downloaded)')
+    pt.add_argument('--feed', choices=['u8', 'f32', 'yuv420'], default='u8',
+                    help='host->device training feed: u8 (default; raw '
+                         'pixels, colour affine on the device) or f32')
+    pt.add_argument('--augment-rotate', action='store_true',
+                    help='randomly rotate images by multiples of 90 degrees')
+    pt.add_argument('--augment-free-rotate', metavar='value value',
+                    type=float, nargs=2, default=[0, 0],
+                    help='(compat no-op: the reference never feeds it to '
+                         'training)')
+    pt.add_argument('--augment-crop', action='store_true',
+                    help='random IoU-constrained crops before resizing')
+    pt.add_argument('--augment-brightness', metavar='value', type=float,
+                    default=0.002,
+                    help='stddev of the random brightness shift')
+    pt.add_argument('--augment-contrast', metavar='value', type=float,
+                    default=0.002, help='stddev of the random contrast factor')
+    pt.add_argument('--augment-hue', metavar='value', type=float,
+                    default=0.0002, help='stddev of the random hue rotation')
+    pt.add_argument('--augment-saturation', metavar='value', type=float,
+                    default=0.002,
+                    help='stddev of the random saturation factor')
+    pt.add_argument('--regularization-l2', metavar='value', type=float,
+                    default=0.0001, help='weight decay coefficient')
+    pt.add_argument('--clip-grads', metavar='norm', type=float, default=0.0,
+                    help='clip gradients to this global norm (0 disables)')
+    pt.add_argument('--anchor-ious', metavar='value value', type=float,
+                    nargs=2, default=[0.4, 0.5],
+                    help='background / foreground IoU cutoffs for anchor '
+                         'assignment')
+    pt.add_argument('--anchor-ratios', metavar='value', type=float,
+                    nargs='+', default=[1.0, 2.0, 0.5],
+                    help='anchor aspect ratios per cell')
+    pt.add_argument('--anchor-scales', metavar='value', type=float,
+                    nargs='+', default=[4 * 2 ** (i / 3) for i in range(3)],
+                    help='anchor scales per cell (in strides)')
+    pt.add_argument('--max-det', metavar='num', type=int, default=128,
+                    help='static per-image target capacity')
+    # not ported yet: each raises and names its ROADMAP item
+    pt.add_argument('--rotated-bbox', action='store_true',
+                    help='(not ported yet)')
+    pt.add_argument('--absolute-angle', action='store_true',
+                    help='(not ported yet)')
+    pt.add_argument('--anchor-angles', metavar='value', type=float,
+                    nargs='+', default=None, help='(not ported yet)')
+    pt.add_argument('--backbone-weights', metavar='path', type=str,
+                    nargs='+', default=[], help='(not ported yet)')
+    pt.add_argument('--logdir', metavar='logdir', type=str,
+                    help='(not ported yet)')
+    pt.add_argument('--post-metrics', metavar='url', type=str,
+                    help='(not ported yet)')
+    pt.add_argument('--profile-dir', metavar='path', type=str,
+                    help='(not ported yet)')
+    _add_common(pt)
+
+    pi = subparsers.add_parser('infer', help='run inference')
+    pi.add_argument('model', type=str, help='checkpoint (.pth) to run')
+    pi.add_argument('--images', metavar='path', type=str, default='.',
+                    help='directory of images to process')
+    pi.add_argument('--annotations', metavar='annotations', type=str,
+                    help='COCO-JSON ground truth; enables mAP scoring')
+    pi.add_argument('--output', metavar='file', type=str, nargs='+',
+                    default=['detections.json'],
+                    help='where to write the detection JSON output')
+    pi.add_argument('--batch', metavar='size', type=int, default=2 * devcount,
+                    help='images per forward pass')
+    pi.add_argument('--resize', metavar='scale', type=int, default=800,
+                    help='target shorter-side length in pixels')
+    pi.add_argument('--max-size', metavar='max', type=int, default=1333,
+                    help='cap on the longer side after resizing')
+    pi.add_argument('--full-precision', action='store_true',
+                    help='disable bf16 mixed precision')
+    pi.add_argument('--threshold', metavar='value', type=float, default=None,
+                    help='score threshold')
+    pi.add_argument('--detections', metavar='num', type=int, default=None,
+                    help='max detections per image')
+    pi.add_argument('--fixed-size', metavar='height width', type=int,
+                    nargs='+', default=None,
+                    help='letterbox inputs to a fixed canvas: one value for '
+                         'square, or height width')
+    _add_common(pi)
     return parser.parse_args(args)
 
 
-def run(args, model):
+def _refuse_unported(args):
+    if args.num_hosts > 1:
+        raise NotImplementedError(
+            '--num-hosts > 1: world > 1 is not ported yet (ROADMAP Queue 1 '
+            'item 7, data parallel)')
+    if args.command != 'train':
+        return
+    if args.feed == 'yuv420':
+        raise NotImplementedError(
+            '--feed yuv420 is not ported (ROADMAP "Do not port"); use u8')
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                '--{} is not ported yet (ROADMAP {})'.format(
+                    flag.replace('_', '-'), item))
+
+
+def load_model(args):
+    """(Model, resume state): a fresh model for ``train`` without a
+    checkpoint (or with ``--override``), else the checkpoint's."""
+    from .model import Model
+
+    if args.command == 'train' and (args.override
+                                    or not os.path.exists(args.model)):
+        print('Initializing model...')
+        model = Model(backbones=args.backbone, classes=args.classes,
+                      ratios=args.anchor_ratios, scales=args.anchor_scales,
+                      anchor_ious=args.anchor_ious)
+        model.initialize(random.randint(0, 2 ** 31 - 1),
+                         fine_tune=args.fine_tune)
+        state = {}
+    else:
+        # loaded on the CPU: train() / infer() move it to the device
+        print('Loading model from {}...'.format(os.path.basename(args.model)))
+        model, state = Model.load(args.model)
+    print(model)
+    state['path'] = args.model
+    return model, state
+
+
+def run(args, model, state):
     from . import infer as infer_mod
+    from . import train as train_mod
+
+    if args.with_apex:
+        print('--with-apex ignored: bf16 mixed precision is the default '
+              '(use --full-precision for fp32)')
+    if args.command == 'train':
+        if any(args.augment_free_rotate):
+            print('--augment-free-rotate ignored: the reference defines this '
+                  'flag but never feeds it to training')
+        return train_mod.train(
+            model, state, args.images, args.annotations,
+            args.val_images or args.images, args.val_annotations,
+            args.resize, args.max_size, args.jitter, args.batch,
+            int(args.iters * args.schedule), args.val_iters, args.lr,
+            args.warmup, [int(m * args.schedule) for m in args.milestones],
+            args.gamma, mixed_precision=not args.full_precision, verbose=True,
+            rotate_augment=args.augment_rotate,
+            crop_augment=args.augment_crop,
+            augment_brightness=args.augment_brightness,
+            augment_contrast=args.augment_contrast,
+            augment_hue=args.augment_hue,
+            augment_saturation=args.augment_saturation,
+            regularization_l2=args.regularization_l2, max_det=args.max_det,
+            clip_grads=args.clip_grads, feed=args.feed, device=args.device)
 
     if args.threshold is not None:
         model.threshold = args.threshold
@@ -83,14 +274,10 @@ def run(args, model):
 
 def main(args=None):
     'Entry point for the odtk-tpu-torch command'
-    from .model import Model
-
     args = parse(sys.argv[1:] if args is None else args)
-    # loaded on the CPU: infer() checks the device and moves the model
-    print('Loading model from {}...'.format(os.path.basename(args.model)))
-    model, _ = Model.load(args.model)
-    print(model)
-    return run(args, model)
+    _refuse_unported(args)
+    model, state = load_model(args)
+    return run(args, model, state)
 
 
 if __name__ == '__main__':

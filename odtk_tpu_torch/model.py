@@ -2,8 +2,8 @@
 
 Counterpart of ``odtk_tpu/model.py``. ``RetinaNet`` holds the backbones
 and the shared heads and runs the forward pass in NCHW; ``Model`` owns
-the hyperparameters, the anchor tables, the inference functions and
-checkpoint I/O.
+the hyperparameters, the anchor tables, the loss and inference functions
+and checkpoint I/O.
 
 Module names give the reference's torch keys
 (``backbones.<Name>.features.layer1.0.conv1.weight``,
@@ -13,19 +13,22 @@ so a ``.pth`` written by the JAX package loads with ``strict=True``.
 Public layouts are the JAX package's: images are NHWC and the heads are
 returned as NHWC [B, H, W, A*K] maps with channel c = a*K + k.
 
-Precision (``set_dtype``): the parameters stay fp32; a bf16 run uses a
-copy of the module whose convolutions are bf16, while the batch-norm
-statistics stay fp32 and are folded in fp32, as the JAX package does.
+Precision (``set_dtype``): the parameters stay fp32 and are the ones
+trained; a bf16 run computes under ``torch.autocast``, which casts each
+convolution's weights and inputs to bf16 on the fly, as the JAX
+package's ``dtype=bf16, param_dtype=fp32`` convolutions do. The frozen
+batch-norm statistics stay fp32 and are folded in fp32.
 """
 
-import copy
 import math
 
 import torch
 from torch import nn
 
 from . import backbones as backbones_mod
-from .ops import decode, decode_fused, eval_normalize_u8, generate_anchors, nms
+from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
+                  nms, snap_to_anchors)
+from .ops.kernels.loss import detection_loss_sums
 
 
 def _head(out_channels):
@@ -84,7 +87,8 @@ class RetinaNet(nn.Module):
 
 
 class Model:
-    """User-facing model: hyperparameters, anchors, inference, checkpoints.
+    """User-facing model: hyperparameters, anchors, loss, inference,
+    checkpoints.
 
     Mirrors ``odtk_tpu.model.Model`` (axis-aligned boxes). ``config``
     carries threshold / top_n / nms / detections / decode_fused /
@@ -97,7 +101,7 @@ class Model:
     def __init__(self, backbones='ResNet50FPN', classes=80,
                  ratios=(1.0, 2.0, 0.5),
                  scales=tuple(4 * 2 ** (i / 3) for i in range(3)),
-                 config=None):
+                 anchor_ious=(0.4, 0.5), config=None):
         if not isinstance(backbones, (list, tuple)):
             backbones = [backbones]
         config = dict(config or {})
@@ -106,6 +110,7 @@ class Model:
         self.classes = classes
         self.ratios = list(ratios)
         self.scales = list(scales)
+        self.anchor_ious = tuple(anchor_ious)
         self.threshold = config.get('threshold', 0.05)
         self.top_n = config.get('top_n', 1000)
         self.nms = config.get('nms', 0.5)
@@ -117,11 +122,11 @@ class Model:
         self.num_anchors = len(self.ratios) * len(self.scales)
 
         self.module = RetinaNet(tuple(self.backbones), classes,
-                                self.num_anchors).eval().requires_grad_(False)
+                                self.num_anchors).eval()
         self.device = torch.device('cpu')
         self.dtype = torch.float32
-        self._runner = self.module
         self._anchors = {}
+        self._anchor_tensors = {}
 
     def __repr__(self):
         return '\n'.join([
@@ -130,35 +135,47 @@ class Model:
             '   classes: {}, anchors: {}'.format(self.classes,
                                                  self.num_anchors)])
 
-    def initialize(self, generator=0):
+    def initialize(self, generator=0, fine_tune=None):
         """Draw random weights from ``generator`` (a CPU torch.Generator,
-        or an int seed for one); the module must still be on the CPU."""
+        or an int seed for one); the module must still be on the CPU.
+
+        ``fine_tune``: a ``.pth`` checkpoint whose weights then replace
+        the drawn ones, module by module (the backbone, each head conv),
+        where every tensor of the module is present with the same shape;
+        the final classification conv ``cls_head.8`` is never copied
+        (``odtk_tpu/model.py:252-283``)."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
         self.module.initialize(generator)
-        self.set_dtype(self.dtype)
+        if fine_tune is not None:
+            from .io import checkpoint
+            donor = checkpoint.read(fine_tune)['state_dict']
+            own = self.module.state_dict()
+            groups = {}
+            for key in own:
+                groups.setdefault('.'.join(key.split('.')[:2]), []).append(key)
+            graft = {}
+            for group, keys in groups.items():
+                if group == 'cls_head.8':
+                    continue
+                if all(k in donor and donor[k].shape == own[k].shape
+                       for k in keys):
+                    graft.update({k: donor[k] for k in keys})
+            self.module.load_state_dict(graft, strict=False)
         return self
 
     def to(self, device):
         """Move the parameters to ``device``."""
         self.device = torch.device(device)
         self.module.to(self.device)
-        self._runner.to(self.device)
         return self
 
     def set_dtype(self, dtype):
-        """Compute dtype of the forward pass. fp32 runs the master
-        module; another dtype runs a copy whose convolutions are cast to
-        it (batch-norm buffers stay fp32)."""
+        """Compute dtype of the forward pass: fp32, or bf16 under
+        autocast. The parameters stay fp32 either way."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f'compute dtype {dtype} not supported')
         self.dtype = dtype
-        if dtype == torch.float32:
-            self._runner = self.module
-            return self
-        runner = copy.deepcopy(self.module)
-        for m in runner.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(dtype)
-        self._runner = runner
         return self
 
     def anchors(self, stride):
@@ -168,16 +185,60 @@ class Model:
                                                      self.scales)
         return self._anchors[stride]
 
-    @torch.inference_mode()
-    def forward_heads(self, images):
+    def heads(self, images):
         """images [B, H, W, 3] (NHWC, normalized, H and W multiples of
-        ``stride``) -> (cls_heads, box_heads): lists of NHWC logits in
-        the compute dtype."""
+        ``stride``) -> (cls_heads, box_heads): lists of NHWC views of the
+        NCHW head outputs, in the compute dtype. Differentiable when
+        grad is enabled."""
         x = images.to(self.device).permute(0, 3, 1, 2)
         x = x.to(self.dtype).contiguous()
-        cls_heads, box_heads = self._runner(x)
+        with torch.autocast(self.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            cls_heads, box_heads = self.module(x)
         return ([h.permute(0, 2, 3, 1) for h in cls_heads],
                 [h.permute(0, 2, 3, 1) for h in box_heads])
+
+    @torch.inference_mode()
+    def forward_heads(self, images):
+        """``heads`` for inference, without autograd."""
+        return self.heads(images)
+
+    def anchor_tensor(self, stride, device):
+        """The per-stride anchor table [A, 4] as a tensor on ``device``,
+        cached (a host copy per step would synchronize the stream)."""
+        key = (stride, str(device))
+        if key not in self._anchor_tensors:
+            self._anchor_tensors[key] = torch.as_tensor(self.anchors(stride),
+                                                        device=device)
+        return self._anchor_tensors[key]
+
+    def loss_fn(self, images, targets):
+        """(cls_loss, box_loss), fp32 scalars on the device, differentiable
+        with respect to the parameters (``odtk_tpu/model.py:286-365``).
+
+        images [B, H, W, 3] normalized NHWC; targets [B, max_det, 5]
+        padded with -1. Per FPN level: anchors, assignment, then the
+        fused loss kernel (its plain version on the CPU). Both sums are
+        divided by the foreground count, max(fg, 1) per level over the
+        whole batch, summed over the levels."""
+        cls_heads, box_heads = self.heads(images)
+        targets = targets.to(self.device, torch.float32)
+        cls_losses, box_losses, fg_counts = [], [], []
+        for cls_head, box_head in zip(cls_heads, box_heads):
+            h, w = cls_head.shape[1:3]
+            stride = images.shape[2] // w
+            cls_t, box_t, depth = snap_to_anchors(
+                targets, (w * stride, h * stride), stride,
+                self.anchor_tensor(stride, self.device), self.classes,
+                self.anchor_ious)
+            fg_counts.append(torch.clamp((depth > 0).sum(), min=1))
+            c_sum, b_sum = detection_loss_sums(cls_head, box_head, cls_t,
+                                               box_t, depth, self.classes)
+            cls_losses.append(c_sum)
+            box_losses.append(b_sum)
+        fg_total = torch.stack(fg_counts).sum().float()
+        return (torch.stack(cls_losses).sum() / fg_total,
+                torch.stack(box_losses).sum() / fg_total)
 
     @torch.inference_mode()
     def candidates(self, images):

@@ -1,8 +1,9 @@
-"""Constant ImageNet normalization of the u8 eval feed, on the device.
+"""Colour math of the u8 feeds, on the device.
 
-Counterpart of ``odtk_tpu/ops/color.py:eval_normalize_u8``: the loader
-ships raw u8 pixels (a quarter of the f32 bytes over PCIe) and the
-normalization and pad masking run as tensor ops next to the model.
+Counterpart of ``odtk_tpu/ops/color.py:apply_color_affine`` (train) and
+``eval_normalize_u8`` (eval): the loader ships raw u8 pixels (a quarter
+of the f32 bytes over PCIe) and the per-image colour affine, the clip
+and the pad masking run as tensor ops next to the model.
 """
 
 import numpy as np
@@ -10,6 +11,29 @@ import torch
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+# the [0, 1] pixel range after normalization
+_CLIP_LO = (0.0 - IMAGENET_MEAN) / IMAGENET_STD
+_CLIP_HI = (1.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def apply_color_affine(images_u8, colors, sizes):
+    """Per-image colour affine of the u8 train feed, then clip and pad
+    masking. images_u8 [B, H, W, 3]; ``colors`` [B, 3, 4], each image's
+    folded jitter+normalize affine (``data/coco.color_affine``): [:, :, :3]
+    the matrix, [:, :, 3] the offset; ``sizes`` [B, 2], the valid (h, w).
+    Padding is zeroed in normalized space, as in the f32 feed. Three
+    multiply-adds in the JAX function's order, in fp32."""
+    x = images_u8.float()
+    colors = colors.to(x.device, torch.float32)
+    t = colors[:, :, :3][:, None, None]         # [B, 1, 1, 3(c), 3(d)]
+    y = (x[..., 0:1] * t[..., 0, :] + x[..., 1:2] * t[..., 1, :]
+         + x[..., 2:3] * t[..., 2, :]) + colors[:, None, None, :, 3]
+    # per-channel clip with host scalars: a host -> device copy of the
+    # bounds would synchronize the stream on every step
+    y = torch.cat([y[..., c:c + 1].clamp(float(_CLIP_LO[c]),
+                                         float(_CLIP_HI[c]))
+                   for c in range(3)], dim=-1)
+    return _mask_valid(y, images_u8.shape[1:3], sizes)
 
 
 def eval_normalize_u8(images_u8, sizes):

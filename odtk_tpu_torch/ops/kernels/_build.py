@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels on first use and bind them with ctypes.
 
-Every ``odtk_tpu_torch/csrc/*.cu`` file is compiled by ONE ``nvcc`` call
-into a shared library with a plain C interface (no PyTorch headers, so
-the build takes seconds). The library goes to ``odtk_tpu_torch/_build/``
+Every ``odtk_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds). The library goes to ``odtk_tpu_torch/_build/``
 under a name keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused; a file lock serializes
 concurrent builds. Pointers and the stream cross as ``c_void_p``.
@@ -28,13 +29,19 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 # sm_90a: Hopper. No --use_fast_math: an approximate division flips NMS
 # IoUs that sit at the threshold.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    'odtk_nms': [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P, _P],
+    'odtk_nms': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     'odtk_stem_pool': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    'odtk_stem_pool_idx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
+    'odtk_stem_pool_bwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    'odtk_det_loss': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                      _I, _I, _I, _F, _F, _F, _P],
 }
 
 
@@ -62,21 +69,44 @@ def library_path():
     return os.path.join(BUILD_DIR, f'libodtk_kernels_{h.hexdigest()[:16]}.so')
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    output after all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed ({proc.returncode}):\n'
+                          f'{" ".join(cmd)}\n{err}')
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build():
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns the library's path."""
+    """Compile csrc/*.cu unless the library for these sources exists:
+    one nvcc per source, all at once, then one link. Returns the
+    library's path."""
     out = library_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, 'lock'), 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.isfile(out):
-            tmp = f'{out}.{os.getpid()}.tmp'
-            cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                                   f'{" ".join(cmd)}\n{proc.stderr}')
-            os.replace(tmp, out)
+            nvcc = _nvcc()
+            work = f'{out}.{os.getpid()}.d'
+            os.makedirs(work, exist_ok=True)
+            try:
+                objs = [os.path.join(work, os.path.basename(src) + '.o')
+                        for src in sources()]
+                _run_all([[nvcc, *NVCC_FLAGS, '-c', src, '-o', obj]
+                          for src, obj in zip(sources(), objs)])
+                tmp = os.path.join(work, 'lib.so')
+                _run_all([[nvcc, *NVCC_FLAGS, '-shared', '-o', tmp, *objs]])
+                os.replace(tmp, out)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
     return out
 
 

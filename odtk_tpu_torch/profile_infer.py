@@ -41,10 +41,13 @@ STEPS = 10
 
 # lower-case kernel-name fragments -> family; the first match wins, the
 # rest is 'elementwise' (batch-norm affine, ReLU, residual adds, bias,
-# copies, cat)
+# copies, cat, reductions); the training families serve profile_train
 FAMILIES = [
     ('nms kernel', ('nms_kernel',)),
-    ('stem kernel', ('stem_pool_kernel',)),
+    ('stem backward kernel', ('stem_pool_bwd',)),
+    ('stem kernel', ('stem_pool',)),
+    ('det_loss kernel', ('det_loss',)),
+    ('optimizer (fused SGD)', ('fused_sgd', 'multi_tensor', 'sgd_')),
     ('conv layout transform', ('nchwtonhwc', 'nhwctonchw',
                                'tensortransform')),
     ('conv / GEMM math', ('xmma', 'cutlass', 'nvjet', 'gemm', 'cudnn',
@@ -79,7 +82,7 @@ def write_images(root, n, seed=0):
 
 
 def loader_phase(img_dir, stride):
-    from odtk_tpu.data import DataIterator
+    from .data import DataIterator
 
     it = DataIterator(img_dir, 800, 1333, 2, stride, 1, None,
                       training=False, emit='u8')

@@ -1,0 +1,73 @@
+"""Training-loop helpers: a wall-clock profiler and a SIGINT guard.
+
+Copies of ``odtk_tpu/utils.py:Profiler`` and ``ignore_sigint`` (the
+port imports nothing of ``odtk_tpu``).
+"""
+
+import signal
+import time
+from contextlib import contextmanager
+
+
+@contextmanager
+def ignore_sigint():
+    """Defer Ctrl-C while a checkpoint is written."""
+    handler = signal.getsignal(signal.SIGINT)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGINT, handler)
+
+
+class _Lap:
+    """One named stopwatch: accumulated seconds + completed laps."""
+
+    __slots__ = ('mark', 'total', 'laps')
+
+    def __init__(self):
+        self.mark = time.perf_counter()
+        self.total = 0.0
+        self.laps = 0
+
+
+class Profiler:
+    """A set of named wall-clock stopwatches (monotonic clock).
+
+    ``start``/``stop`` bracket a lap; ``bump`` closes the current lap
+    and immediately opens the next (per-iteration cadence timing).
+    ``totals`` and ``means`` expose accumulated seconds and per-lap
+    averages as dict views for status lines.
+    """
+
+    def __init__(self, names=('main',)):
+        self._laps = {n: _Lap() for n in names}
+
+    def reset(self):
+        for lap in self._laps.values():
+            lap.__init__()
+
+    def start(self, name='main'):
+        self._laps[name].mark = time.perf_counter()
+
+    def stop(self, name='main'):
+        lap = self._laps[name]
+        lap.total += time.perf_counter() - lap.mark
+        lap.laps += 1
+
+    def bump(self, name='main'):
+        self.stop(name)
+        self.start(name)
+
+    @property
+    def totals(self):
+        return {n: lap.total for n, lap in self._laps.items()}
+
+    @property
+    def counts(self):
+        return {n: lap.laps for n, lap in self._laps.items()}
+
+    @property
+    def means(self):
+        return {n: lap.total / lap.laps if lap.laps else 0.0
+                for n, lap in self._laps.items()}

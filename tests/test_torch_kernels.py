@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import nms as knms
 from odtk_tpu_torch.ops.kernels import stem as kstem
 
@@ -107,7 +108,208 @@ def test_nms_plain_semantics():
 def test_build_compiles_every_source_for_sm90a():
     from odtk_tpu_torch.ops.kernels import _build
     names = sorted(p.rsplit('/', 1)[-1] for p in _build.sources())
-    assert names == ['nms.cu', 'stem_pool.cu']
+    assert names == ['det_loss.cu', 'nms.cu', 'stem_pool.cu']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert not any('fast_math' in f for f in _build.NVCC_FLAGS)
     assert _build.library_path().startswith(_build.BUILD_DIR)
+
+
+# ------------------------------------------------- stem under autodiff
+def _stem_case(shape, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    y = torch.randn(shape, generator=g).to(device, dtype)
+    scale = (torch.rand(c, generator=g) + 0.5).to(device)
+    shift = torch.randn(c, generator=g).to(device)
+    return y, scale, shift
+
+
+def _pool_shape(shape):
+    b, c, hc, wc = shape
+    return (b, c, (hc - 1) // 2 + 1, (wc - 1) // 2 + 1)
+
+
+def test_stem_plain_codes_route_like_autograd():
+    """The plain codes (from max_pool2d's indices) routed by the plain
+    backward equal the autograd of the plain forward exactly, with
+    sentinel windows (all-negative) getting no gradient."""
+    y, scale, shift = _stem_case((2, 3, 16, 12), torch.float32, 'cpu')
+    y[0, 0, :4, :4] = -5.0
+    y.requires_grad_(True)
+    out = kstem.bn_relu_pool_plain(y, scale, shift)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    want, = torch.autograd.grad(out, y, g)
+    out2, idx = kstem.bn_relu_pool_idx_plain(y.detach(), scale, shift)
+    assert torch.equal(out.detach(), out2)
+    assert idx.dtype == torch.int8 and int(idx.max()) <= 9
+    assert (idx[out2 == 0] == 9).all() and (idx[out2 > 0] < 9).all()
+    got = kstem.bn_relu_pool_bwd_plain(idx, g, scale, (16, 12))
+    assert torch.equal(got, want)
+
+
+def test_stem_under_grad_has_grad_fn_on_cpu():
+    """A grad-enabled ResNet forward builds a graph through the stem, so
+    conv1 trains; without grad it stays the primal forward."""
+    from odtk_tpu_torch.backbones.resnet import ResNet
+    net = ResNet(layers=(1, 1, 1, 1), bottleneck=False)
+    x = torch.randn(1, 3, 64, 64)
+    c3, c4, c5 = net(x)
+    assert c5.grad_fn is not None
+    c5.sum().backward()
+    assert net.conv1.weight.grad is not None
+    assert net.conv1.weight.grad.abs().sum() > 0
+    with torch.no_grad():
+        assert net(x)[2].grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_stem_idx_kernel_equals_plain(cuda_device, dtype):
+    """Forward with argmax: out bit-equal to the primal kernel and the
+    plain version; idx equal to max_pool2d's indices mapped to codes."""
+    for shape in [(2, 64, 448, 576), (1, 64, 13, 9)]:
+        y, scale, shift = _stem_case(shape, dtype, cuda_device)
+        y[0, 0, :6, :6] = -3.0              # sentinel windows
+        out, idx = kstem.bn_relu_pool_idx(y, scale, shift)
+        torch.cuda.synchronize()
+        want_out, want_idx = kstem.bn_relu_pool_idx_plain(y, scale, shift)
+        assert torch.equal(out, kstem.bn_relu_pool(y, scale, shift))
+        assert torch.equal(out, want_out)
+        assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_stem_bwd_kernel_equals_plain_autograd(cuda_device, dtype):
+    """The routing backward equals the autograd of the plain version:
+    both sum the <= 4 routed cotangents in fp32 in ascending window
+    order, then scale and round once."""
+    for shape in [(2, 64, 448, 576), (1, 64, 13, 9)]:
+        y, scale, shift = _stem_case(shape, dtype, cuda_device, seed=2)
+        g = torch.randn(_pool_shape(shape),
+                        generator=torch.Generator().manual_seed(3))
+        g = g.to(cuda_device, dtype)
+        yr = y.clone().requires_grad_(True)
+        got, = torch.autograd.grad(kstem.bn_relu_pool_train(yr, scale, shift),
+                                   yr, g)
+        torch.cuda.synchronize()
+        want, = torch.autograd.grad(kstem.bn_relu_pool_plain(yr, scale, shift),
+                                    yr, g)
+        assert got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv1_trains_through_the_stem_kernel(cuda_device):
+    """The hazard of a kernel outside autograd: conv1's weight gradient
+    through the kernels is non-zero and equals the plain version's (fp32,
+    TF32 off, deterministic cuDNN)."""
+    from odtk_tpu_torch.backbones.resnet import ResNet
+    net = ResNet(layers=(1, 1, 1, 1), bottleneck=False).to(cuda_device)
+    x = torch.randn(2, 3, 128, 160,
+                    generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    scale, shift = net.bn1.fold()
+    grads = []
+    flags = torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                       allow_tf32=False)
+    with flags:
+        for pool in (kstem.bn_relu_pool_train, kstem.bn_relu_pool_plain):
+            out = pool(net.conv1(x), scale, shift)
+            grads.append(torch.autograd.grad(out.square().sum(),
+                                             net.conv1.weight)[0])
+    assert grads[0].abs().sum() > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------- fused detection loss
+def loss_case(b=2, h=13, w=21, anchors=9, classes=80, dtype=torch.float32,
+              device='cpu', seed=0):
+    """NHWC head views of NCHW tensors, and index-form targets with
+    ignore (-1), background (0) and foreground (c+1) anchors."""
+    rng = np.random.RandomState(seed)
+    n = h * w * anchors
+    x = torch.from_numpy(rng.randn(b, anchors * classes, h, w).astype(
+        np.float32) * 3).to(device, dtype)
+    bx = torch.from_numpy(rng.randn(b, anchors * 4, h, w).astype(
+        np.float32) * 0.3).to(device, dtype)
+    cls = rng.randint(0, classes, (b, n))
+    depth = rng.choice([-1.0, 0.0, 0.0, 0.0], (b, n))
+    fg = rng.rand(b, n) < 0.05
+    depth[fg] = cls[fg] + 1
+    cls = torch.from_numpy(cls).to(device, torch.int32)
+    depth = torch.from_numpy(depth.astype(np.float32)).to(device)
+    box_t = torch.from_numpy(rng.randn(b, n, 4).astype(
+        np.float32) * 0.3).to(device)
+    return (x.permute(0, 2, 3, 1), bx.permute(0, 2, 3, 1), cls, box_t,
+            depth)
+
+
+def test_loss_plain_gradients_vanish_off_the_masks():
+    """Ignored anchors (depth -1) give no focal gradient, non-foreground
+    anchors no box gradient; the sums are finite and positive."""
+    x, bx, cls, box_t, depth = loss_case()
+    x = x.clone().requires_grad_(True)
+    bx = bx.clone().requires_grad_(True)
+    c_sum, b_sum = kloss.detection_loss_sums(x, bx, cls, box_t, depth, 80)
+    assert c_sum > 0 and b_sum > 0
+    dx, dbx = torch.autograd.grad(c_sum + b_sum, (x, bx))
+    b = x.shape[0]
+    assert (dx.reshape(b, -1, 80)[depth < 0] == 0).all()
+    assert (dbx.reshape(b, -1, 4)[depth <= 0] == 0).all()
+    assert (dbx.reshape(b, -1, 4)[depth > 0] != 0).any()
+
+
+def test_loss_wrapper_rejects_bad_input():
+    x, bx, cls, box_t, depth = loss_case(device='meta')
+    with pytest.raises(ValueError):
+        kloss.detection_loss_sums(x, bx, cls, box_t, depth, 80)
+    with pytest.raises(ValueError):   # a contiguous NHWC head
+        kloss.detection_loss_sums_kernel(x.contiguous(), bx, cls, box_t,
+                                         depth, 80)
+
+
+# sums: fp32 per element, summed in another order -> relative 1e-5;
+# unit gradients: fp32 closed form vs autograd of the dense form -> rtol
+# 1e-4 in fp32; in bf16 both round once from fp32, so one bf16 ulp
+# (rtol 2^-7)
+LOSS_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-6),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hw', [(13, 21), (100, 144), (1, 1)])
+def test_loss_kernel_equals_plain(cuda_device, dtype, hw):
+    x, bx, cls, box_t, depth = loss_case(h=hw[0], w=hw[1], dtype=dtype,
+                                         device=cuda_device)
+    sums, dx, dbx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t,
+                                                     depth, 80)
+    torch.cuda.synchronize()
+    xr = x.detach().requires_grad_(True)
+    bxr = bx.detach().requires_grad_(True)
+    c_sum, b_sum = kloss.detection_loss_sums_plain(xr, bxr, cls, box_t,
+                                                   depth, 80)
+    want_dx, want_dbx = torch.autograd.grad(c_sum + b_sum, (xr, bxr))
+    torch.testing.assert_close(sums[0], c_sum, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sums[1], b_sum, rtol=1e-5, atol=1e-6)
+    assert dx.stride() == x.stride() and dx.dtype == dtype
+    torch.testing.assert_close(dx, want_dx, **LOSS_TOL[dtype])
+    torch.testing.assert_close(dbx, want_dbx, **LOSS_TOL[dtype])
+    again = kloss.detection_loss_sums_kernel(x, bx, cls, box_t, depth, 80)[0]
+    assert torch.equal(again, sums)            # no atomics: run to run
+
+
+@pytest.mark.cuda
+def test_loss_kernel_backward_scales_unit_gradients(cuda_device):
+    x, bx, cls, box_t, depth = loss_case(dtype=torch.bfloat16,
+                                         device=cuda_device)
+    xr = x.detach().requires_grad_(True)
+    bxr = bx.detach().requires_grad_(True)
+    before = kloss.detection_loss_sums.launches
+    c_sum, b_sum = kloss.detection_loss_sums(xr, bxr, cls, box_t, depth, 80)
+    assert kloss.detection_loss_sums.launches == before + 1
+    dx, dbx = torch.autograd.grad(c_sum / 7 + b_sum * 3, (xr, bxr))
+    _, ux, ubx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t, depth,
+                                                  80)
+    assert torch.equal(dx, (ux.float() / 7).bfloat16())
+    assert torch.equal(dbx, (ubx.float() * 3).bfloat16())

@@ -183,8 +183,11 @@ def test_port_never_imports_jax():
             'import odtk_tpu_torch.io.checkpoint\n'
             'import odtk_tpu_torch.io.jax_bridge\n'
             'import odtk_tpu_torch.profile_infer\n'
+            'import odtk_tpu_torch.profile_train, odtk_tpu_torch.train\n'
+            'import odtk_tpu_torch.data, odtk_tpu_torch.utils\n'
             'new = {m.split(".")[0] for m in set(sys.modules) - before}\n'
-            'print(sorted(new & {"jax", "flax", "jaxlib", "optax"}))\n')
+            'print(sorted(new & {"jax", "flax", "jaxlib", "optax",\n'
+            '                    "odtk_tpu"}))\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
