@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``odtk_tpu_torch/csrc`` (one nvcc per
-source, in parallel), drives the port's two main paths through its CLI
+source, in parallel), drives the port's four main paths through its CLI
 (``odtk_tpu_torch.main``) on ResNet50FPN at its published widths (80
-classes, 9 anchors, FPN 256, random weights from a seed, synthetic COCO
-JPEGs from ``tests/synth.py``, resize 800 / max 1333, bf16), and holds
-each of the five kernels against its plain PyTorch version at the shapes
-those paths give it:
+classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
+6 x 27; random weights from a seed, synthetic COCO JPEGs from
+``tests/synth.py``, resize 800 / max 1333, bf16), and holds each of the
+eight kernels against its plain PyTorch version at the shapes those
+paths give it:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
@@ -32,7 +33,29 @@ those paths give it:
      planted overlaps, ties and an IoU exactly at the threshold: equal;
   8. reference: fp32 inference on the card (TF32 off) vs the CPU;
   9. train-reference: one fp32 SGD step of ResNet50FPN on the card (TF32
-     off) vs the same step on the CPU, at 2 x 256 x 256.
+     off) vs the same step on the CPU, at 2 x 256 x 256;
+ 10. rotated-train: ``odtk-tpu-torch train --rotated-bbox`` for 20 steps
+     at batch 8 on rotated JPEGs with up to 24 boxes each, gradients
+     clipped to a global norm of 25; the losses
+     finite; per step the matcher and the loss kernel (at D = 6)
+     launched once per level, the stem's argmax forward and backward
+     once;
+ 11. rotated-match: the matcher kernel vs the plain stream on the real
+     anchors and packed targets of the first rotated step's five levels
+     (equal wherever the plain best IoU is > 0, <= 0 elsewhere, the
+     assignment's depth equal), and its unbatched variant vs plain on
+     one image of P3 (equal);
+ 12. rotated-loss: the loss kernel vs plain at D = 6 on the first
+     rotated step's heads, with the loss phase's tolerances;
+ 13. rotated-infer: ``odtk-tpu-torch infer`` on the rotated checkpoint
+     (batch 2); the rotated NMS launched once per batch, detections
+     non-empty, finite, with a ``segmentation`` polygon;
+ 14. rotated-nms: the rotated NMS kernel vs plain on the real [2, 2000]
+     candidates of that run's first batch and on a synthetic [2, 5000]
+     case with tied scores, identical boxes, shared corners and a pair
+     next to the threshold: equal;
+ 15. rotated-train-reference: one fp32 rotated SGD step on the card vs
+     the CPU at 2 x 256 x 256, with the tolerances of phase 9.
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -58,15 +81,27 @@ RUNS = 20
 STEM_SHAPE = (2, 64, 448, 576)      # conv1 output of a 896x1152 canvas, b=2
 TRAIN_STEM_SHAPE = (8, 64, 448, 576)
 TRAIN_BATCH, TRAIN_STEPS, WARMUP = 8, 20, 10
+ROTATED_MAX_BOXES = 24              # dense targets for the matcher
+# the rotated box head starts at the prior bias on all six channels, so
+# its smooth-L1 starts near 28 per foreground anchor, and from random
+# weights the unclipped loss went non-finite at step 9 (NVIDIA H100 80GB
+# HBM3, 700 W); 25 is the clip odtk-tpu train's help gives for rotated
+# fine-tunes
+ROTATED_CLIP_GRADS = 25.0
 # from random weights (the port fetches no pretrained backbone) the
 # unnormalized ResNet50 diverges within 20 steps at lr 0.01 on the card
 TRAIN_LR = 0.001
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM device memory, bytes / ms
 FP32_FLOPS_PER_MS = 67e12 / 1e3      # H100 SXM fp32 outside tensor cores
+# fp32 operations of one quad clip (csrc/quad_iou.cuh) at the least an
+# overlapping pair needs: the pad (8 compares), both areas (32), per clip
+# edge its line (5), the side of 4 vertices (16), 4 crossing tests and two
+# crossings (4 + 30), then the shoelace of 4 vertices (12) and the IoU (4)
+CLIP_OPS = 8 + 32 + 4 * (5 + 16 + 4 + 30) + 12 + 4
 
 
-def _median_ms(fn, runs=RUNS):
-    for _ in range(3):
+def _median_ms(fn, runs=RUNS, warmup=3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
@@ -248,12 +283,13 @@ def nms_phase(cases):
     return rows
 
 
-def make_data(root, n_images):
+def make_data(root, n_images, rotated=False, max_boxes=3):
     sys.path.insert(0, os.path.join(ROOT, 'tests'))
     from synth import make_dataset
 
     img_dir, ann = make_dataset(root, n_images=n_images, size=(480, 640),
-                                seed=0, fmt='jpg')
+                                max_boxes=max_boxes, seed=0, rotated=rotated,
+                                fmt='jpg')
     # an 80-class model: give the ground truth 80 categories so every
     # predicted class maps to a category id
     with open(ann) as f:
@@ -265,17 +301,21 @@ def make_data(root, n_images):
     return img_dir, ann
 
 
-def train_phase(root, img_dir, ann):
-    """``odtk-tpu-torch train``: ResNet50FPN, 80 classes, bf16, b=8,
-    resize 800 / max 1333, from a seeded random init. Returns the
-    checkpoint, the launch counts of the run, the loss inputs of its
-    first step (for the loss phase) and the median ms per step."""
+def train_phase(root, img_dir, ann, rotated=False):
+    """``odtk-tpu-torch train`` (``--rotated-bbox`` when rotated):
+    ResNet50FPN, 80 classes, bf16, b=8, resize 800 / max 1333, from a
+    seeded random init. Returns the checkpoint, the launch counts of the
+    run, the loss inputs of its first step (for the loss phases), the
+    assignment inputs of its first step (for the rotated-match phase),
+    the median ms per step and the losses."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch import model as model_mod
-    from odtk_tpu_torch.ops.kernels import loss, stem
+    from odtk_tpu_torch.ops import assign
+    from odtk_tpu_torch.ops.kernels import loss, match_rotated, stem
 
-    ckpt = os.path.join(root, 'retinanet_r50fpn_trained.pth')
-    seen = []
+    kind = 'rotated' if rotated else 'axis'
+    ckpt = os.path.join(root, f'retinanet_r50fpn_{kind}_trained.pth')
+    seen, snaps = [], []
 
     def capture(*args, **kwargs):
         if len(seen) < 5:
@@ -283,11 +323,23 @@ def train_phase(root, img_dir, ann):
                          for a in args])
         return loss.detection_loss_sums(*args, **kwargs)
 
-    model_mod.detection_loss_sums = capture   # the name loss_fn calls
-    kernels = (loss.detection_loss_sums, stem.bn_relu_pool_idx,
-               stem.bn_relu_pool_bwd, stem.bn_relu_pool)
+    def capture_snap(*args):
+        if len(snaps) < 5:
+            snaps.append([a.clone() if torch.is_tensor(a) else a
+                          for a in args])
+        return assign.snap_to_anchors_rotated_batched(*args)
+
+    # the names loss_fn calls
+    model_mod.detection_loss_sums = capture
+    model_mod.snap_to_anchors_rotated_batched = capture_snap
+    counted = {'det_loss': loss.detection_loss_sums,
+               'stem_idx': stem.bn_relu_pool_idx,
+               'stem_bwd': stem.bn_relu_pool_bwd,
+               'stem_primal': stem.bn_relu_pool,
+               'match_rotated': match_rotated.rotated_match,
+               'rotated_best_match': match_rotated.rotated_best_match}
     random.seed(0)                            # the fresh model's init seed
-    for k in kernels:
+    for k in counted.values():
         k.launches = 0
     try:
         result = cli.main([
@@ -296,33 +348,38 @@ def train_phase(root, img_dir, ann):
             '--batch', str(TRAIN_BATCH), '--resize', '800',
             '--max-size', '1333', '--jitter', '800', '800',
             '--iters', str(TRAIN_STEPS), '--warmup', str(WARMUP),
-            '--milestones', str(TRAIN_STEPS), '--lr', str(TRAIN_LR)])
+            '--milestones', str(TRAIN_STEPS), '--lr', str(TRAIN_LR)]
+            + (['--rotated-bbox', '--clip-grads', str(ROTATED_CLIP_GRADS)]
+               if rotated else []))
     finally:
         model_mod.detection_loss_sums = loss.detection_loss_sums
-    launches = {'det_loss': loss.detection_loss_sums.launches,
-                'stem_idx': stem.bn_relu_pool_idx.launches,
-                'stem_bwd': stem.bn_relu_pool_bwd.launches,
-                'stem_primal': stem.bn_relu_pool.launches}
+        model_mod.snap_to_anchors_rotated_batched = \
+            assign.snap_to_anchors_rotated_batched
+    launches = {name: k.launches for name, k in counted.items()}
     expect = {'det_loss': 5 * TRAIN_STEPS, 'stem_idx': TRAIN_STEPS,
-              'stem_bwd': TRAIN_STEPS, 'stem_primal': 0}
+              'stem_bwd': TRAIN_STEPS, 'stem_primal': 0,
+              'match_rotated': 5 * TRAIN_STEPS if rotated else 0,
+              'rotated_best_match': 0}
     if launches != expect:
-        raise AssertionError(f'train launches {launches}, expected {expect}')
+        raise AssertionError(f'{kind} train launches {launches}, expected '
+                             f'{expect}')
     losses = result['losses']
     if len(losses) != TRAIN_STEPS or not all(
             math.isfinite(c) and math.isfinite(b) for _, c, b in losses):
-        raise AssertionError(f'train losses not finite: {losses}')
+        raise AssertionError(f'{kind} train losses not finite: {losses}')
     ms = statistics.median(result['step_ms'][3:])
-    print(f'train: {TRAIN_STEPS} steps, b={TRAIN_BATCH} bf16, launches '
-          f'{launches}, {ms:.3f} ms/step (median after 3), loss first '
-          f'{losses[0]} last {losses[-1]}', flush=True)
-    return ckpt, launches, seen, ms, losses
+    print(f'{"rotated-" if rotated else ""}train: {TRAIN_STEPS} steps, '
+          f'b={TRAIN_BATCH} bf16, launches {launches}, {ms:.3f} ms/step '
+          f'(median after 3), loss first {losses[0]} last {losses[-1]}',
+          flush=True)
+    return ckpt, launches, seen, snaps, ms, losses
 
 
-def loss_phase(levels):
+def loss_phase(levels, label='loss'):
     """The fused loss kernel vs plain on the first train step's five
-    levels (bf16 heads). Sums: relative 1e-4 (fp32 sums of ~1e8 terms
-    in two orders). Unit gradients: one bf16 ulp (rtol 2^-7), both
-    rounded once from fp32."""
+    levels (bf16 heads; D = 4, or 6 for the rotated model). Sums:
+    relative 1e-4 (fp32 sums of ~1e8 terms in two orders). Unit
+    gradients: one bf16 ulp (rtol 2^-7), both rounded once from fp32."""
     from odtk_tpu_torch.ops.kernels import loss
 
     k_ms = p_ms = bound_ms = 0.0
@@ -360,57 +417,72 @@ def loss_phase(levels):
         n = depth.numel()
         logits = cls_head.numel()
         nbytes = (2 * logits * s + 2 * box_head.numel() * s
-                  + n * (4 + 4 + 16) + 8)
+                  + n * (4 + 4) + box_t.numel() * 4 + 8)
         bound_ms += _bound(nbytes, 33 * logits + 12 * box_head.numel())[0]
-        print(f'loss level {list(cls_head.shape)}: sums {sums.tolist()} vs '
-              f'plain {[c_sum.item(), b_sum.item()]}, unit gradients within '
-              f'one bf16 ulp', flush=True)
-    print(f'loss: 5 levels, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
+        print(f'{label} level {list(cls_head.shape)} '
+              f'{list(box_head.shape)}: sums {sums.tolist()} vs plain '
+              f'{[c_sum.item(), b_sum.item()]}, unit gradients within one '
+              f'bf16 ulp', flush=True)
+    print(f'{label}: 5 levels, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
           f'bound {bound_ms:.4f} ms per step', flush=True)
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                 bound=(bound_ms, 'bytes'))
 
 
-def e2e_phase(root, ckpt, img_dir, ann):
-    """The ``infer`` CLI on the synthetic set with the trained checkpoint.
-    Returns the launch counts of the run, the NMS inputs of its first
-    batch (for the NMS phase) and its median ms per batch after the
-    first."""
+def e2e_phase(root, ckpt, img_dir, ann, rotated=False):
+    """The ``infer`` CLI on the synthetic set with the trained checkpoint
+    (a rotated model by the checkpoint's angles). Returns the launch
+    counts of the run, the NMS inputs of its first batch (for the NMS
+    phases) and its median ms per batch after the first."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch import model as model_mod
-    from odtk_tpu_torch.ops.kernels import nms, stem
+    from odtk_tpu_torch.ops.kernels import nms, nms_rotated, stem
 
-    det = os.path.join(root, 'detections.json')
+    kind = 'rotated' if rotated else 'axis'
+    det = os.path.join(root, f'detections_{kind}.json')
+    fn = nms_rotated.nms_rotated if rotated else nms.nms
+    name = 'nms_rotated' if rotated else 'nms'
     seen = []
 
     def capture(scores, boxes, classes, *args):
         if not seen:
             seen.extend((scores, boxes, classes))
-        return nms.nms(scores, boxes, classes, *args)
+        return fn(scores, boxes, classes, *args)
 
-    model_mod.nms = capture     # the name Model.inference_fn calls
-    nms.nms.launches = stem.bn_relu_pool.launches = 0
+    setattr(model_mod, name, capture)   # the name Model.inference_fn calls
+    counted = {'nms': nms.nms, 'nms_rotated': nms_rotated.nms_rotated,
+               'stem': stem.bn_relu_pool}
+    for k in counted.values():
+        k.launches = 0
     try:
         result = cli.main(['infer', ckpt, '--images', img_dir,
                            '--annotations', ann, '--batch', '2',
                            '--threshold', '0.001', '--output', det])
     finally:
-        model_mod.nms = nms.nms
-    launches = {'nms': nms.nms.launches, 'stem': stem.bn_relu_pool.launches}
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f'the {name} kernel never launched in the '
-                                 'end-to-end run')
+        setattr(model_mod, name, fn)
+    launches = {n: k.launches for n, k in counted.items()}
+    batches = len(result['batch_ms'])
+    other = 'nms' if rotated else 'nms_rotated'
+    if (launches[name] != batches or launches['stem'] != batches
+            or launches[other] != 0):
+        raise AssertionError(f'{kind} e2e launches {launches} over '
+                             f'{batches} batches')
     with open(det) as f:
         dets = json.load(f)['annotations']
     if not dets:
-        raise AssertionError('no detections')
+        raise AssertionError(f'no {kind} detections')
     for d in dets:
-        if not all(math.isfinite(v) for v in d['bbox'] + [d['score']]):
+        values = d['bbox'] + [d['score']]
+        if rotated:
+            if len(d['bbox']) != 5 or len(d['segmentation'][0]) != 8:
+                raise AssertionError(f'not a rotated detection: {d}')
+            values += d['segmentation'][0]
+        if not all(math.isfinite(v) for v in values):
             raise AssertionError(f'non-finite detection {d}')
     ms = statistics.median(result['batch_ms'][1:])
-    print(f'e2e: {len(dets)} detections, launches {launches}, '
-          f'{ms:.3f} ms/batch (b=2, bf16)', flush=True)
+    print(f'{"rotated-infer" if rotated else "e2e"}: {len(dets)} '
+          f'detections, launches {launches}, {ms:.3f} ms/batch (b=2, bf16)',
+          flush=True)
     return launches, seen, ms
 
 
@@ -446,22 +518,16 @@ def reference_phase(ckpt, device):
           f'scores max err {score_err:.3g}', flush=True)
 
 
-def train_reference_phase(ckpt, device):
+def reference_errors(ckpt, devices, rotated=False):
     """One fp32 SGD step (lr 0.01, momentum 0.9, weight decay 1e-4) of
-    ResNet50FPN from the trained checkpoint on the card (TF32 off) and
-    on the CPU, on the same two 256x256 u8 images and targets.
-
-    Losses within a relative 1e-4. The parameter change is compared as
-    the update the step applies, lr x the momentum buffer (the first
-    step's buffer is the gradient plus the weight decay), before it is
-    rounded into the parameter's fp32 ulp, by relative L2 error: over
-    all parameters within 2e-3, the median tensor within 1e-3 (fp32
-    convolutions summed in other orders through the network and its
-    backward), and every tensor within 5e-2. A ReLU or max-pool decision
-    on a value near 0 can go either way between the two sums, and one
-    such flip in layer4 (2 x 8 x 8 positions per channel at 256x256)
-    moves a weight's gradient by ~1/128 of it; a gradient path that is
-    wrong or missing moves its tensors by order 1."""
+    the checkpoint's model on each of the two ``devices`` (TF32 off), on
+    the same two 256x256 u8 images and targets (rotated targets (x, y,
+    w, h, theta, class) for a rotated model). Returns the relative error
+    of the second against the first: of the losses, and of the update
+    the step applies, lr x the momentum buffer (the first step's buffer
+    is the gradient plus the weight decay), before it is rounded into
+    the parameter's fp32 ulp, in L2 over all parameters, for the median
+    tensor and for the worst tensor."""
     from odtk_tpu_torch import train
     from odtk_tpu_torch.model import Model
 
@@ -479,35 +545,236 @@ def train_reference_phase(ckpt, device):
                                    [150, 150, 64, 64, 3]], dtype=torch.float)
     targets[1, :2] = torch.tensor([[10, 10, 120, 100, 0],
                                    [130, 60, 40, 90, 42]], dtype=torch.float)
-    result = {}
-    for dev in ('cpu', device):
+    if rotated:
+        theta = torch.tensor([[0.3, -0.5, 0.1], [0.7, -0.2, 0.0]])
+        targets = torch.cat([targets[..., :4], torch.zeros(2, 8, 1),
+                             targets[..., 4:]], -1)
+        targets[0, :3, 4] = theta[0]
+        targets[1, :2, 4] = theta[1, :2]
+    result = []
+    for dev in devices:
         model, _ = Model.load(ckpt, device=dev)
         params = dict(model.module.named_parameters())
         opt = train.make_optimizer(params.values(), lr)
         step = train.make_train_step(model, opt, feed='u8')
         cl, bl = step(lr, *(t.to(dev) for t in (u8, targets, colors,
                                                 sizes)))
-        result[dev] = ((cl.item(), bl.item()),
+        result.append(((cl.item(), bl.item()),
                        {k: lr * opt.state[p]['momentum_buffer'].double().cpu()
-                        for k, p in params.items()})
-    (c0, b0), u0 = result['cpu']
-    (c1, b1), u1 = result[device]
-    loss_err = max(abs(c1 - c0) / abs(c0), abs(b1 - b0) / abs(b0))
+                        for k, p in params.items()}))
+    ((c0, b0), u0), ((c1, b1), u1) = result
     per = {k: ((u1[k] - u0[k]).norm() / u0[k].norm().clamp(min=1e-30))
            .item() for k in u0}
-    total = (sum(((u1[k] - u0[k]) ** 2).sum() for k in u0)
-             / sum((u0[k] ** 2).sum() for k in u0)).sqrt().item()
-    median = statistics.median(per.values())
     worst = max(per, key=per.get)
-    print(f'train-reference: fp32 step card vs CPU, losses rel err '
-          f'{loss_err:.3g}; parameter update rel L2 err over all '
-          f'{total:.3g}, median tensor {median:.3g}, largest {per[worst]:.3g} '
-          f'({worst})', flush=True)
-    if (loss_err > 1e-4 or total > 2e-3 or median > 1e-3
-            or per[worst] > 5e-2):
-        raise AssertionError(
-            f'train step card vs CPU: losses {loss_err:.3g}, update all '
-            f'{total:.3g}, median {median:.3g}, {worst} {per[worst]:.3g}')
+    return dict(
+        loss=max(abs(c1 - c0) / abs(c0), abs(b1 - b0) / abs(b0)),
+        total=(sum(((u1[k] - u0[k]) ** 2).sum() for k in u0)
+               / sum((u0[k] ** 2).sum() for k in u0)).sqrt().item(),
+        median=statistics.median(per.values()), worst=worst,
+        worst_err=per[worst])
+
+
+def train_reference_phase(ckpt, device, rotated=False):
+    """``reference_errors`` of the card against the CPU from the trained
+    checkpoint. Losses within a relative 1e-4; the update in relative L2
+    within 5e-3 over all parameters and for the median tensor (fp32
+    convolutions summed in other orders through the network and its
+    backward) and 5e-2 for every tensor. A ReLU or max-pool decision on
+    a value near 0 can go either way between the two sums, and one such
+    flip in layer4 (2 x 8 x 8 positions per channel at 256x256) moves a
+    weight's gradient by ~1/128 of it; a max-pool flip in the stem
+    moves conv1's, whose gradient weighs most in the whole update. How
+    many flips a step meets depends on the weights
+    (``reference_spread.py`` measures the spread over seeded inits). A
+    gradient path that is wrong or missing moves its tensors by order
+    1."""
+    name = 'rotated-train-reference' if rotated else 'train-reference'
+    e = reference_errors(ckpt, ('cpu', device), rotated)
+    print(f'{name}: fp32 step card vs CPU, losses rel err {e["loss"]:.3g}; '
+          f'parameter update rel L2 err over all {e["total"]:.3g}, median '
+          f'tensor {e["median"]:.3g}, largest {e["worst_err"]:.3g} '
+          f'({e["worst"]})', flush=True)
+    if (e['loss'] > 1e-4 or e['total'] > 5e-3 or e['median'] > 5e-3
+            or e['worst_err'] > 5e-2):
+        raise AssertionError(f'{name} card vs CPU out of bounds: {e}')
+
+
+def _aabb_pairs(subj, rows, n_act):
+    """(anchor, active target) pairs whose AABBs overlap: the pairs the
+    matcher must clip, summed over the images."""
+    q = subj.reshape(-1, 4, 2)
+    lo, hi = q.amin(1), q.amax(1)                            # [N, 2]
+    pairs = 0
+    for b in range(rows.shape[0]):
+        t = rows[b, :int(n_act[b]), :8].reshape(-1, 4, 2)
+        tlo, thi = t.amin(1), t.amax(1)                       # [M, 2]
+        pairs += int(((lo[:, None] <= thi[None]) & (hi[:, None] >= tlo[None]))
+                     .all(-1).sum())
+    return pairs
+
+
+def rotated_match_phase(snaps):
+    """The matcher kernel vs the plain stream on the real anchors and
+    packed targets of the first rotated step's five levels: equal IoU and
+    slot wherever the plain best IoU is > 0, <= 0 elsewhere, and the
+    assignment's depth equal. Then the unbatched variant vs plain on the
+    first image of P3: equal everywhere."""
+    from odtk_tpu_torch.ops import assign, iou_rotated
+    from odtk_tpu_torch.ops.kernels import match_rotated as km
+
+    k_ms = p_ms = bound_ms = 0.0
+    pairs_total = 0
+    for targets, size, stride, table, classes, ious in snaps:
+        _, quads, cls, valid, _, boxes_rot = assign.rotated_level(
+            targets.float(), size, stride, table)
+        subj, rows, n_act = iou_rotated.match_inputs(quads, boxes_rot, valid,
+                                                     ious[0])
+        got = km.rotated_match(subj, rows, n_act)
+        want = km.rotated_match_plain(subj, rows, n_act)
+        hit = want[0] > 0
+        if not (torch.equal(got[0][hit], want[0][hit])
+                and torch.equal(got[1][hit], want[1][hit])
+                and bool((got[0][~hit] <= 0).all())):
+            raise AssertionError(f'match kernel != plain at stride {stride}')
+        depths = [assign._depth_and_class(
+            iou, torch.gather(cls, 1, slot.long()), classes, ious)[1]
+            for iou, slot in (got, want)]
+        if not torch.equal(*depths):
+            raise AssertionError(f'assignment depth differs at stride '
+                                 f'{stride}')
+        pairs = _aabb_pairs(subj, rows, n_act)
+        pairs_total += pairs
+        k_ms += _median_ms(lambda: km.rotated_match(subj, rows, n_act))
+        p_ms += _median_ms(lambda: km.rotated_match_plain(subj, rows, n_act),
+                           runs=3, warmup=1)
+        b, n = want[0].shape
+        bound_ms += _bound(subj.numel() * 4 + rows.numel() * 4 + b * 4
+                           + b * n * 8, pairs * CLIP_OPS)[0]
+        print(f'rotated-match stride {stride} [{b}, {n}] x {n_act.tolist()} '
+              f'targets: IoU > 0 at {int(hit.sum())} (equal), kernel at -2 '
+              f'{int((got[0] == -2).sum())} vs plain '
+              f'{int((want[0] == -2).sum())}, foreground '
+              f'{int((depths[0] > 0).sum())}, AABB pairs {pairs}',
+              flush=True)
+    print(f'rotated-match: 5 levels, kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.4f} ms, bound {bound_ms:.4f} ms per step', flush=True)
+    match_row = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                     bound=(bound_ms, 'operations'), pairs=pairs_total)
+
+    targets, size, stride, table, _, _ = snaps[0]
+    _, quads, _, valid, _, boxes_rot = assign.rotated_level(
+        targets.float(), size, stride, table)
+    args = (quads, boxes_rot[0], valid[0])
+    got = km.rotated_best_match(*args)
+    want = km.rotated_best_match_plain(*args)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError('rotated_best_match kernel != plain')
+    n, m = quads.shape[0], boxes_rot.shape[1]
+    best_row = dict(
+        max_abs_err=0.0, ms=_median_ms(lambda: km.rotated_best_match(*args)),
+        plain_ms=_median_ms(lambda: km.rotated_best_match_plain(*args),
+                            runs=3, warmup=1),
+        bound=_bound(n * 32 + m * 36 + n * 8,
+                     n * int(valid[0].sum()) * CLIP_OPS))
+    print(f'rotated_best_match [{n}] x {m} (P3, image 0): equal, kernel '
+          f'{best_row["ms"]:.4f} ms, plain {best_row["plain_ms"]:.4f} ms, '
+          f'bound {best_row["bound"][0]:.4f} ms', flush=True)
+    return match_row, best_row
+
+
+def synthetic_rotated_nms_case(b=2, n=5000, seed=0):
+    """Rotated boxes in clusters, scores on a 1/32 grid (ties), a third
+    of the scores zero, 5 classes; each image also holds exact copies of
+    boxes, boxes sharing corner coordinates with others, and a same-class
+    axis-aligned pair whose IoU sits next to 0.5 (10x10 inside 20x10 at
+    one corner: 0.5 exactly but for the +0.001 pad of the shared
+    corners)."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(50, 750, (b, 40, 2))
+    pick = rng.randint(0, 40, (b, n))
+    ctr = np.take_along_axis(centers, pick[..., None], axis=1)
+    ctr = ctr + rng.uniform(-12, 12, (b, n, 2))
+    wh = rng.uniform(8, 90, (b, n, 2))
+    th = rng.uniform(-np.pi / 2, np.pi / 2, (b, n))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2, np.sin(th)[..., None],
+                            np.cos(th)[..., None]], -1)
+    boxes[:, 2:400:2] = boxes[:, 3:401:2]                 # exact copies
+    boxes[:, 400:800:2, :2] = boxes[:, 401:801:2, :2]     # shared corners
+    scores = rng.randint(1, 33, (b, n)) / 32.0
+    scores[rng.rand(b, n) < 0.33] = 0.0
+    classes = rng.randint(0, 5, (b, n))
+    boxes[:, 0] = [1000, 1000, 1020, 1010, 0, 1]
+    boxes[:, 1] = [1000, 1000, 1010, 1010, 0, 1]
+    scores[:, :2] = [1.0, 0.5]
+    classes[:, :2] = 7
+    return (torch.from_numpy(scores.astype(np.float32)),
+            torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(classes.astype(np.float32)))
+
+
+def _nms_rotated_work(scores, boxes, classes, thr, ndet):
+    """The rounds of the greedy NMS that record a detection, and the
+    clips they need (live candidates of the winner's class), replayed."""
+    from odtk_tpu_torch.ops.iou_rotated import (_corner_lists, clip_iou,
+                                                sincos_box_corners)
+    s = scores.clone()
+    corners = sincos_box_corners(boxes)
+    rows = torch.arange(s.shape[0], device=s.device)
+    rounds = clips = 0
+    for _ in range(ndet):
+        m = s.argmax(dim=1)
+        picked = s[rows, m] > 0
+        if not bool(picked.any()):
+            break
+        mc = classes[rows, m]
+        same = classes == mc[:, None]
+        live = (s != 0) & same & picked[:, None]
+        live[rows, m] = False
+        rounds += int(picked.sum())
+        clips += int(live.sum())
+        cx, cy = _corner_lists(corners[rows, m], 1)
+        suppress = (clip_iou(corners, cx, cy) > thr) & same
+        suppress[rows, m] = True
+        s = torch.where(picked[:, None] & suppress, 0.0, s)
+    return rounds, clips
+
+
+def rotated_nms_phase(cases):
+    from odtk_tpu_torch.ops.iou_rotated import (quad_iou_one_vs_all,
+                                                sincos_box_corners)
+    from odtk_tpu_torch.ops.kernels import nms_rotated as knr
+
+    rows = {}
+    for name, (s, b, c) in cases.items():
+        got = knr.nms_rotated(s, b, c, 0.5, 100)
+        want = knr.nms_rotated_plain(s, b, c, 0.5, 100)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f'rotated nms kernel != plain on {name}: '
+                                 f'max abs diff {_max_abs(got, want)}')
+        kept = int((got[0] > 0).sum())
+        rounds, clips = _nms_rotated_work(s, b, c, 0.5, 100)
+        bsz, n = s.shape
+        rows[name] = dict(
+            max_abs_err=_max_abs(got, want),
+            ms=_median_ms(lambda: knr.nms_rotated(s, b, c, 0.5, 100)),
+            plain_ms=_median_ms(
+                lambda: knr.nms_rotated_plain(s, b, c, 0.5, 100), runs=3,
+                warmup=1),
+            # inputs read and outputs written once; each round an argmax
+            # over the candidates and one clip per live same-class one
+            bound=_bound(bsz * n * 32 + bsz * 100 * 32,
+                         rounds * n + clips * CLIP_OPS))
+        extra = ''
+        if name == 'synthetic':
+            corners = sincos_box_corners(b[0, :2])
+            iou = quad_iou_one_vs_all(corners[1:], corners[0]).item()
+            extra = f', planted pair IoU {iou!r}'
+        print(f'rotated-nms {name} {list(s.shape)}: equal, {kept} kept, '
+              f'{rounds} rounds, {clips} clips, kernel '
+              f'{rows[name]["ms"]:.4f} ms, plain '
+              f'{rows[name]["plain_ms"]:.4f} ms, bound '
+              f'{rows[name]["bound"][0]:.6f} ms{extra}', flush=True)
+    return rows
 
 
 def _row(name, source, replaces, launches, row):
@@ -536,7 +803,7 @@ def main():
     fwd_rows, bwd_rows = stem_train_phase(device)
     with tempfile.TemporaryDirectory(prefix='odtk_smoke_') as root:
         img_dir, ann = make_data(root, n_images=32)
-        ckpt, train_launches, levels, step_ms, losses = train_phase(
+        ckpt, train_launches, levels, _, step_ms, _ = train_phase(
             root, img_dir, ann)
         loss_row = loss_phase(levels)
         del levels
@@ -548,28 +815,59 @@ def main():
         reference_phase(ckpt, device)
         train_reference_phase(ckpt, device)
 
+        rot_root = os.path.join(root, 'rotated')
+        rot_dir, rot_ann = make_data(rot_root, n_images=32, rotated=True,
+                                     max_boxes=ROTATED_MAX_BOXES)
+        rot_ckpt, rot_launches, levels, snaps, rot_step_ms, _ = train_phase(
+            rot_root, rot_dir, rot_ann, rotated=True)
+        match_row, best_row = rotated_match_phase(snaps)
+        del snaps
+        rot_loss_row = loss_phase(levels, 'rotated-loss')
+        del levels
+        rot_infer_launches, cands, rot_batch_ms = e2e_phase(
+            rot_root, rot_ckpt, rot_dir, rot_ann, rotated=True)
+        rot_nms_rows = rotated_nms_phase(
+            {'decode': cands, 'synthetic': [
+                t.to(device) for t in synthetic_rotated_nms_case()]})
+        train_reference_phase(rot_ckpt, device, rotated=True)
+
     csrc = 'odtk_tpu_torch/csrc/'
+    pallas = 'odtk_tpu/ops/pallas/'
     bf16 = torch.bfloat16
     kernels = [
-        _row('nms', csrc + 'nms.cu', 'odtk_tpu/ops/pallas/nms_kernel.py:96',
+        _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
              infer_launches['nms'], nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
-             'odtk_tpu/ops/pallas/stem_kernel.py:99', infer_launches['stem'],
+             pallas + 'stem_kernel.py:99', infer_launches['stem'],
              dict(stem_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in stem_rows.values()))),
         _row('bn_relu_pool_idx', csrc + 'stem_pool.cu',
-             'odtk_tpu/ops/pallas/stem_kernel.py:117',
+             pallas + 'stem_kernel.py:117',
              train_launches['stem_idx'], fwd_rows[bf16]),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
-             'odtk_tpu/ops/pallas/stem_kernel.py:157',
+             pallas + 'stem_kernel.py:157',
              train_launches['stem_bwd'], dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
-             'odtk_tpu/ops/pallas/focal_kernel.py:186',
+             pallas + 'focal_kernel.py:186',
              train_launches['det_loss'], loss_row),
+        _row('det_loss_d6', csrc + 'det_loss.cu',
+             pallas + 'focal_kernel.py:186',
+             rot_launches['det_loss'], rot_loss_row),
+        _row('match_rotated', csrc + 'match_rotated.cu',
+             pallas + 'match_rotated_kernel.py:104',
+             rot_launches['match_rotated'], match_row),
+        _row('rotated_best_match', csrc + 'match_rotated.cu',
+             pallas + 'iou_kernel.py:79',
+             rot_launches['rotated_best_match'], best_row),
+        _row('nms_rotated', csrc + 'nms_rotated.cu',
+             pallas + 'nms_rotated_kernel.py:92',
+             rot_infer_launches['nms_rotated'], rot_nms_rows['decode']),
     ]
     print(f'e2e_ms_per_batch: {batch_ms}')
     print(f'train_ms_per_step: {step_ms}')
+    print(f'rotated_e2e_ms_per_batch: {rot_batch_ms}')
+    print(f'rotated_train_ms_per_step: {rot_step_ms}')
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,7 +1,8 @@
 """COCO-JSON dataset with host-side decode and augmentation.
 
-A copy of ``odtk_tpu/data/coco.py`` (axis-aligned boxes): the port
-imports nothing of ``odtk_tpu``, and ``tests/test_torch_data.py`` holds
+A copy of ``odtk_tpu/data/coco.py`` (``CocoDataset`` and the rotated-box
+``RotatedCocoDataset``): the port imports nothing of ``odtk_tpu``, and
+``tests/test_torch_data.py`` and ``tests/test_torch_rotated.py`` hold
 the two equal. Aspect-preserving resize with a shorter-side target
 (randomized within ``jitter`` for training) capped by ``max_size``,
 90-degree rotation augment with box remap, horizontal flip, gaussian
@@ -225,7 +226,7 @@ class CocoDataset:
                  training=False, rotate_augment=False, crop_augment=False,
                  augment_brightness=0.0,
                  augment_contrast=0.0, augment_hue=0.0, augment_saturation=0.0,
-                 fixed_size=None, emit='f32'):
+                 absolute_angle=False, fixed_size=None, emit='f32'):
         # emit='u8' (training only): __getitem__ returns
         # (u8 image, target, color_t [3,3], color_off [3]) — raw resized
         # pixels plus the per-image jitter+normalize affine, which the
@@ -242,10 +243,15 @@ class CocoDataset:
         self.training = training
         self.rotate_augment = rotate_augment
         self.crop_augment = crop_augment
+        if crop_augment and self.box_width == 6:
+            raise ValueError('crop augmentation does not support rotated '
+                             'boxes (the reference DALI crop path has the '
+                             'same restriction, odtk/train.py:64)')
         self.augment_brightness = augment_brightness
         self.augment_contrast = augment_contrast
         self.augment_hue = augment_hue
         self.augment_saturation = augment_saturation
+        self.absolute_angle = absolute_angle
 
         if annotations:
             self.coco = CocoIndex(annotations)
@@ -577,4 +583,50 @@ class CocoDataset:
         if random.randint(0, 1):
             arr = arr[:, ::-1]
             boxes[:, 0] = arr.shape[1] - boxes[:, 0] - boxes[:, 2]
+        return arr, boxes
+
+
+class RotatedCocoDataset(CocoDataset):
+    """Rotated-box dataset: targets are (x, y, w, h, theta, class)
+    (odtk/data.py:237-430)."""
+    box_width = 6
+
+    def _prep_bbox(self, bbox, img_id):
+        if len(bbox) == 4:
+            return bbox + [0.0]
+        assert len(bbox) == 5, \
+            f'Bounding box for image {img_id} must have 5 entries'
+        return bbox[:5]
+
+    def _scale_boxes(self, boxes, ratio):
+        boxes = boxes.copy()
+        boxes[:, :4] *= ratio      # theta unscaled (data.py:291)
+        return boxes
+
+    def _geometric_augment(self, arr, boxes):
+        angle = random.randint(0, 3) * 90
+        if self.rotate_augment and angle != 0:
+            oh, ow = arr.shape[:2]
+            arr = np.rot90(arr, angle // 90)   # expand=True semantics
+            x, y, bw, bh, t = (boxes[:, i].copy() for i in range(5))
+            if angle == 90:
+                boxes[:, 0] = y
+                boxes[:, 1] = ow - x - bw
+                if not self.absolute_angle:
+                    boxes[:, 2], boxes[:, 3] = bh, bw
+            elif angle == 180:
+                boxes[:, 0] = ow - x - bw
+                boxes[:, 1] = oh - y - bh
+            elif angle == 270:
+                boxes[:, 0] = oh - y - bh
+                boxes[:, 1] = x
+                if not self.absolute_angle:
+                    boxes[:, 2], boxes[:, 3] = bh, bw
+            if self.absolute_angle:
+                t = t + math.radians(angle)
+                boxes[:, 4] = np.sign(t) * np.remainder(np.abs(t), math.pi)
+        if random.randint(0, 1):
+            arr = arr[:, ::-1]
+            boxes[:, 0] = arr.shape[1] - boxes[:, 0] - boxes[:, 2]
+            boxes[:, 4] = -boxes[:, 4]
         return arr, boxes

@@ -1,8 +1,9 @@
 """Prefetching data iterator with bucketed static shapes.
 
-A copy of ``odtk_tpu/data/loader.py`` (axis-aligned boxes, the ``u8``
-and ``f32`` feeds): the port imports nothing of ``odtk_tpu``, and
-``tests/test_torch_data.py`` holds the two equal. Host threads decode
+A copy of ``odtk_tpu/data/loader.py`` (``DataIterator`` and the
+rotated-box ``RotatedDataIterator``, the ``u8`` and ``f32`` feeds): the
+port imports nothing of ``odtk_tpu``, and ``tests/test_torch_data.py``
+and ``tests/test_torch_rotated.py`` hold the two equal. Host threads decode
 and augment JPEGs while the device computes; batches are padded to
 multiples of the model stride. Sharding follows DistributedSampler
 semantics: a per-epoch permutation is split contiguously across
@@ -16,7 +17,9 @@ import threading
 
 import numpy as np
 
-from .coco import CocoDataset, fit_resize_caps, resize_dims, round_up
+from .coco import (CocoDataset, RotatedCocoDataset, fit_resize_caps,
+                   resize_dims, round_up)
+
 
 def _pad_batch(images, stride, fixed_size=None, dtype=np.float32):
     """Stack ragged [H,W,3] images padded to a bucketed static shape."""
@@ -52,7 +55,7 @@ class DataIterator:
                  augment_brightness=0.0, augment_contrast=0.0,
                  augment_hue=0.0, augment_saturation=0.0, max_det=128,
                  rank=0, shuffle=None, fixed_size=None, num_threads=2,
-                 prefetch=2, seed=0, emit='f32'):
+                 prefetch=2, seed=0, absolute_angle=False, emit='f32'):
         # emit='u8' (training): batches are
         # (images u8 [B,H,W,3], targets, colors f32 [B,3,4], sizes
         # f32 [B,2]) — colors[:, :, :3] is each image's folded
@@ -71,7 +74,8 @@ class DataIterator:
             rotate_augment=rotate_augment, crop_augment=crop_augment,
             augment_brightness=augment_brightness,
             augment_contrast=augment_contrast, augment_hue=augment_hue,
-            augment_saturation=augment_saturation, fixed_size=fixed_size,
+            augment_saturation=augment_saturation,
+            absolute_angle=absolute_angle, fixed_size=fixed_size,
             emit=self.emit)
         self.resize = resize
         self.max_size = max_size
@@ -308,3 +312,7 @@ class DataIterator:
             return data, ids, ratios, sizes
         data = _pad_batch(images, self.stride, self.fixed_size)
         return data, ids, ratios
+
+
+class RotatedDataIterator(DataIterator):
+    dataset_cls = RotatedCocoDataset

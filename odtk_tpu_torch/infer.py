@@ -7,7 +7,10 @@ the device from pinned host memory with a non-blocking copy, the whole
 normalize -> backbone -> heads -> decode -> NMS path runs there, and the
 results stay on the device until the gather after the last batch, so the
 host never waits for the device inside the loop. The detection JSON has
-the JAX package's schema and ``CocoEvaluator('bbox')`` scores it.
+the JAX package's schema and ``CocoEvaluator`` scores it: 'bbox' for an
+axis-aligned model; for a rotated one ('segm') each detection's
+``bbox`` is [x, y, w, h, theta] with theta = atan2(sin, cos) and its
+``segmentation`` the rotated corner polygon.
 
 Batch times are read from CUDA events recorded after each batch on the
 device's own clock (host clock on the CPU): the interval between two
@@ -22,7 +25,8 @@ import time
 import numpy as np
 import torch
 
-from .data import CocoEvaluator, DataIterator
+from .data import CocoEvaluator, DataIterator, RotatedDataIterator
+from .utils import rotate_box
 
 
 class BatchClock:
@@ -52,7 +56,7 @@ class BatchClock:
 
 def infer(model, path, detections_file, resize, max_size, batch_size,
           mixed_precision=True, annotations=None, verbose=True,
-          fixed_size=None, device='cuda'):
+          fixed_size=None, device='cuda', rotated_bbox=False):
     """Run inference on the images in ``path``. Returns a dict:
     ``stats``, the COCO stats when ``annotations`` are given and there
     are detections, else None; ``batch_ms``, the intervals between
@@ -66,7 +70,8 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
 
     if verbose:
         print('Preparing dataset...')
-    data_iterator = DataIterator(
+    iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
+    data_iterator = iterator_cls(
         path, resize, max_size, batch_size, model.stride, 1, annotations,
         training=False, fixed_size=fixed_size, emit='u8')
     if verbose:
@@ -89,7 +94,7 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
         print('    device: {}'.format(name))
         print('     batch: {}, precision: {}'.format(
             batch_size, 'mixed (bf16)' if mixed_precision else 'full (fp32)'))
-        print(' BBOX type: axis aligned')
+        print(' BBOX type:', 'rotated' if rotated_bbox else 'axis aligned')
         print('Running inference...')
 
     pin = device.type == 'cuda'
@@ -130,17 +135,22 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
             continue
         processed_ids.add(image_id)
         keep = scores > 0
-        boxes_k = boxes[keep] / ratio
+        boxes_k = boxes[keep].copy()
+        boxes_k[:, :4] /= ratio
         for score, box, cat in zip(scores[keep], boxes_k,
                                    classes[keep].astype(np.int64)):
-            x1, y1, x2, y2 = box.tolist()
+            x1, y1, x2, y2, *sincos = box.tolist()
             cat = int(cat)
             if cat_ids:
                 cat = cat_ids[cat]
-            detections.append({
-                'image_id': image_id, 'score': float(score),
-                'category_id': cat,
-                'bbox': [x1, y1, x2 - x1 + 1, y2 - y1 + 1]})
+            det = {'image_id': image_id, 'score': float(score),
+                   'category_id': cat,
+                   'bbox': [x1, y1, x2 - x1 + 1, y2 - y1 + 1]}
+            if rotated_bbox:
+                theta = float(np.arctan2(*sincos))
+                det['bbox'].append(theta)
+                det['segmentation'] = [rotate_box(det['bbox'])]
+            detections.append(det)
 
     if not detections:
         print('No detections!')
@@ -162,7 +172,8 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     if 'annotations' in data_iterator.coco.dataset:
         if verbose:
             print('Evaluating model...')
-        evaluator = CocoEvaluator(data_iterator.coco, iou_type='bbox')
+        evaluator = CocoEvaluator(data_iterator.coco,
+                                  iou_type='segm' if rotated_bbox else 'bbox')
         stats = evaluator.evaluate(detections, verbose=True)
     else:
         stats = None

@@ -5,11 +5,13 @@ state_dict, ratios, scales, [angles], iteration, optimizer, scheduler}.
 ``state_dict`` holds fp32 CPU tensors under torch names with OIHW
 kernels, so the model half of a file round-trips with the JAX package in
 both directions. ``scheduler`` is ``{'last_iter': iteration}`` in both.
-``optimizer`` is framework-specific: this package writes a
-``torch.optim`` state_dict, the JAX package msgpack ``bytes`` of its
-optax state. Neither reads the other's: the port's trainer starts the
-momentum fresh from a JAX-written file (with a warning), and the JAX
-trainer cannot resume from a port-written one. Files are read with
+A rotated-box model writes its ``angles``, and a file with ``angles``
+loads as a rotated-box model. ``optimizer`` is framework-specific: this
+package writes a ``torch.optim`` state_dict, the JAX package msgpack
+``bytes`` of its optax state. Neither reads the other's: the port's
+trainer starts the momentum fresh from a JAX-written file (with a
+warning), and the JAX trainer cannot resume from a port-written one.
+Files are read with
 ``torch.load(weights_only=True)``, which accepts both.
 """
 
@@ -46,9 +48,12 @@ def save(model, state):
         'classes': int(model.classes),
         'ratios': [float(r) for r in model.ratios],
         'scales': [float(s) for s in model.scales],
-        'state_dict': {k: v.detach().to('cpu', torch.float32).contiguous()
-                       for k, v in model.module.state_dict().items()},
     }
+    if model.rotated_bbox and model.angles:
+        checkpoint['angles'] = [float(a) for a in model.angles]
+    checkpoint['state_dict'] = {
+        k: v.detach().to('cpu', torch.float32).contiguous()
+        for k, v in model.module.state_dict().items()}
     for key in ('iteration', 'optimizer', 'scheduler'):
         if key in state:
             checkpoint[key] = _to_cpu(state[key])
@@ -65,18 +70,18 @@ def read(filename):
     return torch.load(filename, map_location='cpu', weights_only=True)
 
 
-def load(filename, device='cpu'):
+def load(filename, device='cpu', rotated_bbox=False):
     """Rebuild a Model from a checkpoint: returns (model, state), the
-    state holding iteration / optimizer / scheduler where present."""
+    state holding iteration / optimizer / scheduler where present. A
+    file with ``angles`` (or ``rotated_bbox=True``) gives a rotated-box
+    model."""
     from ..model import Model
 
     checkpoint = read(filename)
-    if 'angles' in checkpoint:
-        raise NotImplementedError(
-            f'{filename} is a rotated-box model; odtk_tpu_torch runs '
-            'axis-aligned models only')
-    kwargs = {k: checkpoint[k] for k in ('ratios', 'scales')
+    kwargs = {k: checkpoint[k] for k in ('ratios', 'scales', 'angles')
               if k in checkpoint}
+    if 'angles' in checkpoint or rotated_bbox:
+        kwargs['rotated_bbox'] = True
     model = Model(backbones=checkpoint['backbone'],
                   classes=int(checkpoint['classes']), **kwargs)
     model.module.load_state_dict(checkpoint['state_dict'], strict=True)

@@ -2,9 +2,11 @@
 """odtk-tpu-torch CLI: train, infer.
 
 Flag-compatible with ``odtk-tpu train`` and ``odtk-tpu infer``
-(``odtk_tpu/main.py``) for checkpoint models, plus ``--device`` (default
-``cuda``). With ``cuda`` and no card it raises; ``--device cpu`` runs the
-plain PyTorch versions of the kernels on the CPU. The flags of what is
+(``odtk_tpu/main.py``) for checkpoint models, axis-aligned or rotated
+(``--rotated-bbox``; a checkpoint with ``angles`` implies it), plus
+``--device`` (default ``cuda``). With ``cuda`` and no card it raises;
+``--device cpu`` runs the plain PyTorch versions of the kernels on the
+CPU. The flags of what is
 not ported yet raise and name the ROADMAP item; ``--with-dali`` and
 ``--with-apex`` are compatibility no-ops, as in the JAX CLI. ``export``
 is not ported yet.
@@ -17,9 +19,6 @@ import sys
 
 # flag -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    'rotated_bbox': 'Queue 1 item 5 (the rotated slice)',
-    'absolute_angle': 'Queue 1 item 5 (the rotated slice)',
-    'anchor_angles': 'Queue 1 item 5 (the rotated slice)',
     'backbone_weights': 'Queue 1 item 3 (backbone weight import)',
     'logdir': 'Queue 1 item 9 (TensorBoard and metrics in train)',
     'post_metrics': 'Queue 1 item 9 (TensorBoard and metrics in train)',
@@ -144,13 +143,16 @@ def parse(args):
                     help='anchor scales per cell (in strides)')
     pt.add_argument('--max-det', metavar='num', type=int, default=128,
                     help='static per-image target capacity')
-    # not ported yet: each raises and names its ROADMAP item
     pt.add_argument('--rotated-bbox', action='store_true',
-                    help='(not ported yet)')
+                    help='train with rotated boxes (x, y, w, h, theta)')
     pt.add_argument('--absolute-angle', action='store_true',
-                    help='(not ported yet)')
+                    help='use the full angle range instead of folding into '
+                         '[-45, 45] degrees')
     pt.add_argument('--anchor-angles', metavar='value', type=float,
-                    nargs='+', default=None, help='(not ported yet)')
+                    nargs='+', default=None,
+                    help='anchor angles in radians (rotated-bbox models '
+                         'only)')
+    # not ported yet: each raises and names its ROADMAP item
     pt.add_argument('--backbone-weights', metavar='path', type=str,
                     nargs='+', default=[], help='(not ported yet)')
     pt.add_argument('--logdir', metavar='logdir', type=str,
@@ -178,6 +180,8 @@ def parse(args):
                     help='cap on the longer side after resizing')
     pi.add_argument('--full-precision', action='store_true',
                     help='disable bf16 mixed precision')
+    pi.add_argument('--rotated-bbox', action='store_true',
+                    help='model predicts rotated boxes')
     pi.add_argument('--threshold', metavar='value', type=float, default=None,
                     help='score threshold')
     pi.add_argument('--detections', metavar='num', type=int, default=None,
@@ -217,6 +221,8 @@ def load_model(args):
         print('Initializing model...')
         model = Model(backbones=args.backbone, classes=args.classes,
                       ratios=args.anchor_ratios, scales=args.anchor_scales,
+                      angles=args.anchor_angles,
+                      rotated_bbox=args.rotated_bbox,
                       anchor_ious=args.anchor_ious)
         model.initialize(random.randint(0, 2 ** 31 - 1),
                          fine_tune=args.fine_tune)
@@ -224,7 +230,8 @@ def load_model(args):
     else:
         # loaded on the CPU: train() / infer() move it to the device
         print('Loading model from {}...'.format(os.path.basename(args.model)))
-        model, state = Model.load(args.model)
+        model, state = Model.load(args.model,
+                                  rotated_bbox=args.rotated_bbox)
     print(model)
     state['path'] = args.model
     return model, state
@@ -234,6 +241,8 @@ def run(args, model, state):
     from . import infer as infer_mod
     from . import train as train_mod
 
+    if model.rotated_bbox:
+        args.rotated_bbox = True
     if args.with_apex:
         print('--with-apex ignored: bf16 mixed precision is the default '
               '(use --full-precision for fp32)')
@@ -255,7 +264,9 @@ def run(args, model, state):
             augment_hue=args.augment_hue,
             augment_saturation=args.augment_saturation,
             regularization_l2=args.regularization_l2, max_det=args.max_det,
-            clip_grads=args.clip_grads, feed=args.feed, device=args.device)
+            clip_grads=args.clip_grads, feed=args.feed, device=args.device,
+            rotated_bbox=args.rotated_bbox,
+            absolute_angle=args.absolute_angle)
 
     if args.threshold is not None:
         model.threshold = args.threshold
@@ -269,7 +280,8 @@ def run(args, model, state):
         model, args.images, args.output, args.resize, args.max_size,
         args.batch, annotations=args.annotations,
         mixed_precision=not args.full_precision, verbose=True,
-        fixed_size=fixed_size, device=args.device)
+        fixed_size=fixed_size, device=args.device,
+        rotated_bbox=args.rotated_bbox)
 
 
 def main(args=None):

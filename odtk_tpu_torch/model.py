@@ -11,7 +11,9 @@ Module names give the reference's torch keys
 so a ``.pth`` written by the JAX package loads with ``strict=True``.
 
 Public layouts are the JAX package's: images are NHWC and the heads are
-returned as NHWC [B, H, W, A*K] maps with channel c = a*K + k.
+returned as NHWC [B, H, W, A*K] maps with channel c = a*K + k. A
+rotated-box model (``rotated_bbox=True``) has ratios x scales x angles
+anchors and a box head of 6 channels per anchor (deltas, sin, cos).
 
 Precision (``set_dtype``): the parameters stay fp32 and are the ones
 trained; a bf16 run computes under ``torch.autocast``, which casts each
@@ -27,7 +29,8 @@ from torch import nn
 
 from . import backbones as backbones_mod
 from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
-                  nms, snap_to_anchors)
+                  generate_anchors_rotated, nms, nms_rotated,
+                  snap_to_anchors, snap_to_anchors_rotated_batched)
 from .ops.kernels.loss import detection_loss_sums
 
 
@@ -45,12 +48,13 @@ class RetinaNet(nn.Module):
     """Backbones + shared classification / box heads (NCHW)."""
 
     def __init__(self, backbone_names=('ResNet50FPN',), classes=80,
-                 num_anchors=9):
+                 num_anchors=9, rotated=False):
         super().__init__()
+        self.rotated = rotated
         self.backbones = nn.ModuleDict(
             {name: backbones_mod.build(name) for name in backbone_names})
         self.cls_head = _head(classes * num_anchors)
-        self.box_head = _head(4 * num_anchors)
+        self.box_head = _head((6 if rotated else 4) * num_anchors)
 
     def forward(self, x):
         """x [B, 3, H, W] -> (cls_heads, box_heads), lists of NCHW logits."""
@@ -63,8 +67,8 @@ class RetinaNet(nn.Module):
     def initialize(self, generator):
         """Seeded random init: Kaiming-normal (fan_out) backbone convs,
         Xavier-uniform FPN convs, N(0, 0.01) head convs, zero biases and
-        the pi = 0.01 prior on the final classification bias
-        (``odtk_tpu/model.py:73-96``)."""
+        the pi = 0.01 prior on the final classification bias, and on the
+        final box bias of a rotated model (``odtk_tpu/model.py:73-96``)."""
         for net in self.backbones.values():
             for name, m in net.named_modules():
                 if not isinstance(m, nn.Conv2d):
@@ -83,17 +87,21 @@ class RetinaNet(nn.Module):
                     nn.init.normal_(m.weight, std=0.01, generator=generator)
                     nn.init.zeros_(m.bias)
         pi = 0.01
-        nn.init.constant_(self.cls_head[-1].bias, -math.log((1 - pi) / pi))
+        finals = [self.cls_head[-1]] + ([self.box_head[-1]] if self.rotated
+                                        else [])
+        for conv in finals:
+            nn.init.constant_(conv.bias, -math.log((1 - pi) / pi))
 
 
 class Model:
     """User-facing model: hyperparameters, anchors, loss, inference,
     checkpoints.
 
-    Mirrors ``odtk_tpu.model.Model`` (axis-aligned boxes). ``config``
-    carries threshold / top_n / nms / detections / decode_fused /
-    fused_top_n. The module is built on the CPU; ``initialize`` draws its
-    weights there and ``to(device)`` moves it.
+    Mirrors ``odtk_tpu.model.Model``: axis-aligned boxes, or rotated
+    ones with ``rotated_bbox`` (``angles`` default [-pi/6, 0, pi/6]).
+    ``config`` carries threshold / top_n / nms / detections /
+    decode_fused / fused_top_n. The module is built on the CPU;
+    ``initialize`` draws its weights there and ``to(device)`` moves it.
     """
 
     stride = 128             # input padding stride (FPN)
@@ -101,7 +109,8 @@ class Model:
     def __init__(self, backbones='ResNet50FPN', classes=80,
                  ratios=(1.0, 2.0, 0.5),
                  scales=tuple(4 * 2 ** (i / 3) for i in range(3)),
-                 anchor_ious=(0.4, 0.5), config=None):
+                 angles=None, rotated_bbox=False, anchor_ious=(0.4, 0.5),
+                 config=None):
         if not isinstance(backbones, (list, tuple)):
             backbones = [backbones]
         config = dict(config or {})
@@ -110,6 +119,10 @@ class Model:
         self.classes = classes
         self.ratios = list(ratios)
         self.scales = list(scales)
+        self.rotated_bbox = rotated_bbox
+        self.angles = (list(angles) if angles is not None else
+                       [-math.pi / 6, 0, math.pi / 6] if rotated_bbox
+                       else None)
         self.anchor_ious = tuple(anchor_ious)
         self.threshold = config.get('threshold', 0.05)
         self.top_n = config.get('top_n', 1000)
@@ -120,9 +133,12 @@ class Model:
         self.decode_fused = config.get('decode_fused', True)
         self.fused_top_n = config.get('fused_top_n', 2 * self.top_n)
         self.num_anchors = len(self.ratios) * len(self.scales)
+        if rotated_bbox:
+            self.num_anchors *= len(self.angles)
+        self.box_size = 6 if rotated_bbox else 4
 
         self.module = RetinaNet(tuple(self.backbones), classes,
-                                self.num_anchors).eval()
+                                self.num_anchors, rotated_bbox).eval()
         self.device = torch.device('cpu')
         self.dtype = torch.float32
         self._anchors = {}
@@ -142,7 +158,8 @@ class Model:
         ``fine_tune``: a ``.pth`` checkpoint whose weights then replace
         the drawn ones, module by module (the backbone, each head conv),
         where every tensor of the module is present with the same shape;
-        the final classification conv ``cls_head.8`` is never copied
+        the final classification conv ``cls_head.8`` is never copied,
+        nor ``box_head.8`` of a rotated model
         (``odtk_tpu/model.py:252-283``)."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
@@ -154,9 +171,11 @@ class Model:
             groups = {}
             for key in own:
                 groups.setdefault('.'.join(key.split('.')[:2]), []).append(key)
+            skip = {'cls_head.8'} | ({'box_head.8'} if self.rotated_bbox
+                                     else set())
             graft = {}
             for group, keys in groups.items():
-                if group == 'cls_head.8':
+                if group in skip:
                     continue
                 if all(k in donor and donor[k].shape == own[k].shape
                        for k in keys):
@@ -179,10 +198,15 @@ class Model:
         return self
 
     def anchors(self, stride):
-        """Cached per-stride anchor table [A, 4] (numpy)."""
+        """Cached per-stride anchor table (numpy): [A, 4], or for a
+        rotated model the (axis [A, 4], corners [A, 8]) pair."""
         if stride not in self._anchors:
-            self._anchors[stride] = generate_anchors(stride, self.ratios,
-                                                     self.scales)
+            if self.rotated_bbox:
+                table = generate_anchors_rotated(stride, self.ratios,
+                                                 self.scales, self.angles)
+            else:
+                table = generate_anchors(stride, self.ratios, self.scales)
+            self._anchors[stride] = table
         return self._anchors[stride]
 
     def heads(self, images):
@@ -204,12 +228,16 @@ class Model:
         return self.heads(images)
 
     def anchor_tensor(self, stride, device):
-        """The per-stride anchor table [A, 4] as a tensor on ``device``,
-        cached (a host copy per step would synchronize the stream)."""
+        """The per-stride anchor table (or rotated pair) as tensors on
+        ``device``, cached (a host copy per step would synchronize the
+        stream)."""
         key = (stride, str(device))
         if key not in self._anchor_tensors:
-            self._anchor_tensors[key] = torch.as_tensor(self.anchors(stride),
-                                                        device=device)
+            table = self.anchors(stride)
+            self._anchor_tensors[key] = (
+                tuple(torch.as_tensor(t, device=device) for t in table)
+                if self.rotated_bbox else torch.as_tensor(table,
+                                                          device=device))
         return self._anchor_tensors[key]
 
     def loss_fn(self, images, targets):
@@ -217,17 +245,20 @@ class Model:
         with respect to the parameters (``odtk_tpu/model.py:286-365``).
 
         images [B, H, W, 3] normalized NHWC; targets [B, max_det, 5]
-        padded with -1. Per FPN level: anchors, assignment, then the
-        fused loss kernel (its plain version on the CPU). Both sums are
-        divided by the foreground count, max(fg, 1) per level over the
-        whole batch, summed over the levels."""
+        (or [B, max_det, 6] rotated) padded with -1. Per FPN level:
+        anchors, assignment (the rotated matcher's kernel for a rotated
+        model), then the fused loss kernel (their plain versions on the
+        CPU). Both sums are divided by the foreground count, max(fg, 1)
+        per level over the whole batch, summed over the levels."""
         cls_heads, box_heads = self.heads(images)
         targets = targets.to(self.device, torch.float32)
         cls_losses, box_losses, fg_counts = [], [], []
         for cls_head, box_head in zip(cls_heads, box_heads):
             h, w = cls_head.shape[1:3]
             stride = images.shape[2] // w
-            cls_t, box_t, depth = snap_to_anchors(
+            snap = (snap_to_anchors_rotated_batched if self.rotated_bbox
+                    else snap_to_anchors)
+            cls_t, box_t, depth = snap(
                 targets, (w * stride, h * stride), stride,
                 self.anchor_tensor(stride, self.device), self.classes,
                 self.anchor_ious)
@@ -242,17 +273,21 @@ class Model:
 
     @torch.inference_mode()
     def candidates(self, images):
-        """Decoded candidates before NMS: (scores [B, N], boxes [B, N, 4],
-        classes [B, N]), N = fused_top_n on the fused path."""
+        """Decoded candidates before NMS: (scores [B, N], boxes [B, N, 4]
+        or [B, N, 6] rotated, classes [B, N]), N = fused_top_n on the
+        fused path."""
         cls_heads, box_heads = self.forward_heads(images)
         strides = [images.shape[2] // ch.shape[2] for ch in cls_heads]
         tables = [self.anchors(s) for s in strides]
+        if self.rotated_bbox:
+            tables = [t[0] for t in tables]       # the axis-aligned half
         if self.decode_fused:
             return decode_fused(cls_heads, box_heads, strides, tables,
                                 threshold=self.threshold, top_n=self.top_n,
-                                total_top_n=self.fused_top_n)
+                                total_top_n=self.fused_top_n,
+                                rotated=self.rotated_bbox)
         decoded = [decode(ch, bh, s, t, threshold=self.threshold,
-                          top_n=self.top_n)
+                          top_n=self.top_n, rotated=self.rotated_bbox)
                    for ch, bh, s, t in zip(cls_heads, box_heads, strides,
                                            tables)]
         return tuple(torch.cat(parts, dim=1) for parts in zip(*decoded))
@@ -261,8 +296,10 @@ class Model:
     def inference_fn(self, images):
         """Full post-processed inference on NHWC images:
         (scores [B, D], boxes [B, D, 4], classes [B, D]), score-descending
-        and zero-padded."""
-        return nms(*self.candidates(images), self.nms, self.detections)
+        and zero-padded; rotated boxes are [B, D, 6] (x1, y1, x2, y2,
+        sin, cos), through the rotated NMS."""
+        nms_fn = nms_rotated if self.rotated_bbox else nms
+        return nms_fn(*self.candidates(images), self.nms, self.detections)
 
     @torch.inference_mode()
     def inference_fn_u8(self, images_u8, sizes):
@@ -277,6 +314,7 @@ class Model:
         checkpoint.save(self, state)
 
     @classmethod
-    def load(cls, filename, device='cpu'):
+    def load(cls, filename, device='cpu', rotated_bbox=False):
         from .io import checkpoint
-        return checkpoint.load(filename, device=device)
+        return checkpoint.load(filename, device=device,
+                               rotated_bbox=rotated_bbox)

@@ -1,7 +1,9 @@
 """Box decoding and top-k filtering of the FPN heads.
 
 Counterpart of ``odtk_tpu/ops/decode.py`` on the model's path
-(``from_logits=True``, axis-aligned boxes, an anchor table given). Heads
+(``from_logits=True``, an anchor table given), axis-aligned or rotated:
+a rotated box head has 6 channels per anchor and its boxes come out as
+(x1, y1, x2, y2, sin, cos), the raw (sin, cos) carried through. Heads
 are NHWC, [B, H, W, A*K] logits with channel c = a*K + k (anchor-major,
 class-minor), as the JAX package and the reference checkpoints lay them
 out. Selection is ``torch.topk`` (exact); the JAX package's lane padding
@@ -16,7 +18,8 @@ import torch
 
 def _boxes_from_deltas(deltas, anc, w, h, stride):
     """Anchor-relative center/size decode with one-sided clamping
-    (``odtk_tpu/ops/decode.py:_boxes_from_deltas``, axis-aligned)."""
+    (``odtk_tpu/ops/decode.py:_boxes_from_deltas``); deltas with 6
+    channels carry their (sin, cos) through."""
     aw = anc[..., 2:4] - anc[..., 0:2] + 1
     actr = anc[..., 0:2] + 0.5 * aw
     pred_ctr = deltas[..., 0:2] * aw + actr
@@ -25,7 +28,7 @@ def _boxes_from_deltas(deltas, anc, w, h, stride):
                        device=deltas.device)
     lo = torch.clamp(pred_ctr - 0.5 * pred_wh, min=0.0)
     hi = torch.minimum(pred_ctr + 0.5 * pred_wh - 1.0, lim)
-    return torch.cat([lo, hi], dim=-1)
+    return torch.cat([lo, hi, deltas[..., 4:]], dim=-1)
 
 
 def _select(logits, threshold):
@@ -36,15 +39,18 @@ def _select(logits, threshold):
     return scores, scores > threshold
 
 
-def decode(cls_head, box_head, stride, anchors, threshold=0.05, top_n=1000):
+def decode(cls_head, box_head, stride, anchors, threshold=0.05, top_n=1000,
+           rotated=False):
     """Decode one level's heads into (scores, boxes, classes).
 
-    cls_head [B, H, W, A*K] logits; box_head [B, H, W, A*4] deltas;
-    anchors [A, 4] table. Returns scores [B, n], boxes [B, n, 4],
+    cls_head [B, H, W, A*K] logits; box_head [B, H, W, A*nb] deltas (nb
+    = 4, or 6 rotated); anchors [A, 4] table (for a rotated model the
+    axis half of its pair). Returns scores [B, n], boxes [B, n, nb],
     classes [B, n] with n = min(top_n, H*W*A*K).
     """
+    nb = 6 if rotated else 4
     b, h, w, chans = cls_head.shape
-    a = box_head.shape[-1] // 4
+    a = box_head.shape[-1] // nb
     k = chans // a
     top_n = min(top_n, h * w * chans)
     logits, idx = torch.topk(cls_head.reshape(b, -1), top_n, dim=1)
@@ -54,8 +60,8 @@ def decode(cls_head, box_head, stride, anchors, threshold=0.05, top_n=1000):
     aa = (idx // k) % a
     ww = (idx // (k * a)) % w
     hh = idx // (k * a * w)
-    deltas = torch.gather(box_head.reshape(b, h * w * a, 4), 1,
-                          (idx // k)[..., None].expand(-1, -1, 4)).float()
+    deltas = torch.gather(box_head.reshape(b, h * w * a, nb), 1,
+                          (idx // k)[..., None].expand(-1, -1, nb)).float()
     table = torch.as_tensor(anchors, dtype=torch.float32, device=idx.device)
     cell = torch.stack([ww, hh, ww, hh], dim=-1).float() * stride
     box = _boxes_from_deltas(deltas, cell + table[aa], w, h, stride)
@@ -65,7 +71,7 @@ def decode(cls_head, box_head, stride, anchors, threshold=0.05, top_n=1000):
 
 
 def decode_fused(cls_heads, box_heads, strides, anchor_tables,
-                 threshold=0.05, top_n=1000, total_top_n=None):
+                 threshold=0.05, top_n=1000, total_top_n=None, rotated=False):
     """All levels with ONE global top-k of ``total_top_n`` (default
     ``top_n`` x levels) over the concatenated score maps, then each
     candidate mapped back to its (level, cell, anchor, class).
@@ -75,14 +81,15 @@ def decode_fused(cls_heads, box_heads, strides, anchor_tables,
     decode_fused``): whenever fewer candidates pass the threshold than
     the budget, the candidate sets are identical.
     """
+    nb = 6 if rotated else 4
     b = cls_heads[0].shape[0]
-    k = cls_heads[0].shape[-1] // (box_heads[0].shape[-1] // 4)
+    k = cls_heads[0].shape[-1] // (box_heads[0].shape[-1] // nb)
     flat = torch.cat([ch.reshape(b, -1) for ch in cls_heads], dim=1)
     total = min(total_top_n or top_n * len(cls_heads), flat.shape[1])
     logits, idx = torch.topk(flat, total, dim=1)
     scores, keep = _select(logits, threshold)
 
-    out_box = scores.new_zeros(b, total, 4)
+    out_box = scores.new_zeros(b, total, nb)
     out_cls = scores.new_zeros(b, total)
     off = 0
     for ch, bh, stride, table in zip(cls_heads, box_heads, strides,
@@ -98,8 +105,8 @@ def decode_fused(cls_heads, box_heads, strides, anchor_tables,
         aa = c // k
         ww = row % w
         hh = row // w
-        deltas = torch.gather(bh.reshape(b, h * w * a, 4), 1,
-                              (row * a + aa)[..., None].expand(-1, -1, 4))
+        deltas = torch.gather(bh.reshape(b, h * w * a, nb), 1,
+                              (row * a + aa)[..., None].expand(-1, -1, nb))
         tbl = torch.as_tensor(table, dtype=torch.float32, device=idx.device)
         cell = torch.stack([ww, hh, ww, hh], dim=-1).float() * stride
         box = _boxes_from_deltas(deltas.float(), cell + tbl[aa], w, h, stride)

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels on first use and bind them with ctypes.
 
 Every ``odtk_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
-process, all started together, and the objects are linked into one
+process, all started together (the ``*.cuh`` headers they share are
+included), and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so the
 build takes seconds). The library goes to ``odtk_tpu_torch/_build/``
-under a name keyed by a hash of the sources and flags, so an edited
+under a name keyed by a hash of the sources, headers and flags, so an edited
 source rebuilds and an unchanged one is reused; a file lock serializes
 concurrent builds. Pointers and the stream cross as ``c_void_p``.
 
@@ -42,6 +43,9 @@ _SIGNATURES = {
     'odtk_stem_pool_bwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'odtk_det_loss': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                       _I, _I, _I, _F, _F, _F, _P],
+    'odtk_nms_rotated': [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    'odtk_match_rotated': [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    'odtk_rotated_best_match': [_P, _P, _I, _I, _P, _P, _P],
 }
 
 
@@ -60,9 +64,13 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC, '*.cu')))
 
 
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC, '*.cuh')))
+
+
 def library_path():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, 'rb') as f:
             h.update(f.read())

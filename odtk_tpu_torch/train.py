@@ -32,7 +32,7 @@ import warnings
 import numpy as np
 import torch
 
-from .data import DataIterator
+from .data import DataIterator, RotatedDataIterator
 from .infer import BatchClock, infer
 from .ops import apply_color_affine
 from .utils import Profiler, ignore_sigint
@@ -161,7 +161,8 @@ def train(model, state, path, annotations, val_path, val_annotations,
           rotate_augment=False, crop_augment=False, augment_brightness=0.0,
           augment_contrast=0.0, augment_hue=0.0, augment_saturation=0.0,
           regularization_l2=0.0001, max_det=128, sync_every=8,
-          clip_grads=0.0, feed='u8', device='cuda'):
+          clip_grads=0.0, feed='u8', device='cuda', rotated_bbox=False,
+          absolute_angle=False):
     """Train ``model`` for ``iterations`` steps on one device; writes
     ``state['path']`` at the log cadence and at the end. Returns
     ``{'model', 'losses', 'step_ms'}``: the (iteration, focal, box)
@@ -195,12 +196,14 @@ def train(model, state, path, annotations, val_path, val_annotations,
 
     if verbose:
         print('Preparing dataset...')
-    data_iterator = DataIterator(
+    iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
+    data_iterator = iterator_cls(
         path, jitter, max_size, batch_size, model.stride, 1, annotations,
         training=True, rotate_augment=rotate_augment,
         crop_augment=crop_augment, augment_brightness=augment_brightness,
         augment_contrast=augment_contrast, augment_hue=augment_hue,
-        augment_saturation=augment_saturation, max_det=max_det, emit=feed)
+        augment_saturation=augment_saturation, max_det=max_det,
+        absolute_angle=absolute_angle, emit=feed)
     if verbose:
         print(data_iterator)
         name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
@@ -209,7 +212,7 @@ def train(model, state, path, annotations, val_path, val_annotations,
         print('    device: {}'.format(name))
         print('     batch: {}, precision: {}'.format(
             batch_size, 'mixed (bf16)' if mixed_precision else 'full (fp32)'))
-        print(' BBOX type: axis aligned')
+        print(' BBOX type:', 'rotated' if rotated_bbox else 'axis aligned')
         print('Training model for {} iterations...'.format(iterations))
 
     def save_checkpoint(iteration):
@@ -289,6 +292,6 @@ def train(model, state, path, annotations, val_path, val_annotations,
                 infer(model, val_path, None, resize, max_size, batch_size,
                       annotations=val_annotations,
                       mixed_precision=mixed_precision, verbose=False,
-                      device=device)
+                      device=device, rotated_bbox=rotated_bbox)
     return {'model': model, 'losses': history,
             'step_ms': clock.intervals_ms()}

@@ -1,12 +1,29 @@
-"""Training-loop helpers: a wall-clock profiler and a SIGINT guard.
+"""Helpers: a wall-clock profiler, a SIGINT guard and the rotated-box
+corner helper.
 
-Copies of ``odtk_tpu/utils.py:Profiler`` and ``ignore_sigint`` (the
-port imports nothing of ``odtk_tpu``).
+Copies of ``odtk_tpu/utils.py:Profiler``, ``ignore_sigint`` and
+``rotate_box`` (the port imports nothing of ``odtk_tpu``).
 """
 
 import signal
 import time
 from contextlib import contextmanager
+
+import numpy as np
+
+
+def rotate_box(bbox):
+    """Corners of (x, y, w, h, theta) rotated about the box center, as a
+    flat [x0, y0, ..., x3, y3] list in corner order (tl, bl, br, tr): the
+    ``segmentation`` polygon of a rotated detection."""
+    x, y, w, h, theta = bbox
+    cx, cy = x + (w - 1) / 2.0, y + (h - 1) / 2.0
+    base = np.array([[x, y], [x, y + h - 1],
+                     [x + w - 1, y + h - 1], [x + w - 1, y]], np.float64)
+    c, s = np.cos(theta), np.sin(theta)
+    rot = np.array([[c, -s], [s, c]])
+    corners = (base - [cx, cy]) @ rot.T + [cx, cy]
+    return corners.reshape(-1).tolist()
 
 
 @contextmanager

@@ -12,8 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from odtk_tpu_torch.ops import (generate_anchors_rotated, rotate_boxes,
+                                snap_to_anchors_rotated_batched)
+from odtk_tpu_torch.ops.assign import level_anchors
+from odtk_tpu_torch.ops.iou_rotated import (pack_active, quad_areas,
+                                            sincos_box_corners)
 from odtk_tpu_torch.ops.kernels import loss as kloss
+from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 from odtk_tpu_torch.ops.kernels import nms as knms
+from odtk_tpu_torch.ops.kernels import nms_rotated as knms_rot
 from odtk_tpu_torch.ops.kernels import stem as kstem
 
 
@@ -108,7 +115,10 @@ def test_nms_plain_semantics():
 def test_build_compiles_every_source_for_sm90a():
     from odtk_tpu_torch.ops.kernels import _build
     names = sorted(p.rsplit('/', 1)[-1] for p in _build.sources())
-    assert names == ['det_loss.cu', 'nms.cu', 'stem_pool.cu']
+    assert names == ['det_loss.cu', 'match_rotated.cu', 'nms.cu',
+                     'nms_rotated.cu', 'stem_pool.cu']
+    assert [p.rsplit('/', 1)[-1] for p in _build.headers()] == [
+        'quad_iou.cuh']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert not any('fast_math' in f for f in _build.NVCC_FLAGS)
     assert _build.library_path().startswith(_build.BUILD_DIR)
@@ -223,14 +233,14 @@ def test_conv1_trains_through_the_stem_kernel(cuda_device):
 
 # ------------------------------------------------- fused detection loss
 def loss_case(b=2, h=13, w=21, anchors=9, classes=80, dtype=torch.float32,
-              device='cpu', seed=0):
+              device='cpu', seed=0, dim=4):
     """NHWC head views of NCHW tensors, and index-form targets with
     ignore (-1), background (0) and foreground (c+1) anchors."""
     rng = np.random.RandomState(seed)
     n = h * w * anchors
     x = torch.from_numpy(rng.randn(b, anchors * classes, h, w).astype(
         np.float32) * 3).to(device, dtype)
-    bx = torch.from_numpy(rng.randn(b, anchors * 4, h, w).astype(
+    bx = torch.from_numpy(rng.randn(b, anchors * dim, h, w).astype(
         np.float32) * 0.3).to(device, dtype)
     cls = rng.randint(0, classes, (b, n))
     depth = rng.choice([-1.0, 0.0, 0.0, 0.0], (b, n))
@@ -238,7 +248,7 @@ def loss_case(b=2, h=13, w=21, anchors=9, classes=80, dtype=torch.float32,
     depth[fg] = cls[fg] + 1
     cls = torch.from_numpy(cls).to(device, torch.int32)
     depth = torch.from_numpy(depth.astype(np.float32)).to(device)
-    box_t = torch.from_numpy(rng.randn(b, n, 4).astype(
+    box_t = torch.from_numpy(rng.randn(b, n, dim).astype(
         np.float32) * 0.3).to(device)
     return (x.permute(0, 2, 3, 1), bx.permute(0, 2, 3, 1), cls, box_t,
             depth)
@@ -313,3 +323,181 @@ def test_loss_kernel_backward_scales_unit_gradients(cuda_device):
                                                   80)
     assert torch.equal(dx, (ux.float() / 7).bfloat16())
     assert torch.equal(dbx, (ubx.float() * 3).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_loss_kernel_equals_plain_at_box_dim_6(cuda_device, dtype):
+    """The rotated shape: D = 6 box channels (deltas, sin, cos), A = 27
+    anchors, 80 classes; the tolerances of the D = 4 test."""
+    x, bx, cls, box_t, depth = loss_case(h=25, w=34, anchors=27, dim=6,
+                                         dtype=dtype, device=cuda_device)
+    sums, dx, dbx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t,
+                                                     depth, 80)
+    torch.cuda.synchronize()
+    xr = x.detach().requires_grad_(True)
+    bxr = bx.detach().requires_grad_(True)
+    c_sum, b_sum = kloss.detection_loss_sums_plain(xr, bxr, cls, box_t,
+                                                   depth, 80)
+    want_dx, want_dbx = torch.autograd.grad(c_sum + b_sum, (xr, bxr))
+    torch.testing.assert_close(sums[0], c_sum, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sums[1], b_sum, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dx, want_dx, **LOSS_TOL[dtype])
+    torch.testing.assert_close(dbx, want_dbx, **LOSS_TOL[dtype])
+
+
+# -------------------------------------------------- rotated NMS, matcher
+def rotated_nms_case(kind, b=2, n=2000, seed=0):
+    """(x1, y1, x2, y2, sin, cos) boxes in clusters; 'ties' puts scores
+    on a 1/8 grid, 'coincident' repeats boxes and shares corners."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.randint(40, 600, (b, 60, 2))
+    ctr = np.take_along_axis(ctr, rng.randint(0, 60, (b, n))[..., None], 1)
+    ctr = ctr + rng.uniform(-10, 10, (b, n, 2))
+    wh = rng.uniform(8, 80, (b, n, 2))
+    th = rng.uniform(-np.pi / 2, np.pi / 2, (b, n))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2, np.sin(th)[..., None],
+                            np.cos(th)[..., None]], -1).astype(np.float32)
+    scores = rng.rand(b, n).astype(np.float32)
+    scores[rng.rand(b, n) < 0.3] = 0.0
+    classes = rng.randint(0, 4, (b, n)).astype(np.float32)
+    if kind == 'ties':
+        scores = (np.ceil(scores * 8) / 8).astype(np.float32)
+    elif kind == 'coincident':
+        boxes[:, 1::7] = boxes[:, 0:-1:7][:, :boxes[:, 1::7].shape[1]]
+        boxes[:, 2::7, :2] = boxes[:, 0:-2:7, :2][:, :boxes[:, 2::7].shape[1]]
+    elif kind == 'zeros':
+        scores[:] = 0.0
+    return scores, boxes, classes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind,n', [('random', 2000), ('ties', 5000),
+                                    ('coincident', 3001), ('zeros', 100),
+                                    ('large', 16384)])
+def test_nms_rotated_kernel_equals_plain(cuda_device, kind, n):
+    """Every selected score, box and class equal: the kernel's clip is
+    the plain version's arithmetic, rounded alike."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in rotated_nms_case(kind, n=n)]
+    before = knms_rot.nms_rotated.launches
+    got = knms_rot.nms_rotated(*args, 0.5, 100)
+    torch.cuda.synchronize()
+    assert knms_rot.nms_rotated.launches == before + 1
+    want = knms_rot.nms_rotated_plain(*args, 0.5, 100)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def match_case(b=3, m=24, stride=8, size=(320, 256), seed=0,
+               device='cpu'):
+    """Anchor quads of one level, and rotated targets with padding rows,
+    one empty image and targets out of the size band."""
+    rng = np.random.RandomState(seed)
+    table = generate_anchors_rotated(stride, [1.0, 2.0, 0.5],
+                                     [4 * 2 ** (i / 3) for i in range(3)],
+                                     [-np.pi / 6, 0, np.pi / 6])
+    anchors = level_anchors(size[0] // stride, size[1] // stride, stride,
+                            table[1], device)
+    t = np.full((b, m, 6), -1.0, np.float32)
+    for i, k in enumerate([m - 4, 0, m][:b]):
+        t[i, :k, :2] = rng.uniform(0, size[0] - 60, (k, 2))
+        t[i, :k, 2:4] = rng.uniform(10, 90, (k, 2))
+        t[i, :k, 4] = rng.uniform(-np.pi / 4, np.pi / 4, k)
+        t[i, :k, 5] = rng.randint(0, 80, k)
+    t[-1, -1, 2:4] = [900, 900]
+    return anchors, torch.from_numpy(t).to(device), table
+
+
+@pytest.mark.cuda
+def test_match_rotated_kernel_holds_the_plain_contract(cuda_device):
+    """Where the plain stream's best IoU is > 0, the kernel's IoU and
+    slot are equal to it; elsewhere both are <= 0."""
+    anchors, t, _ = match_case(device=cuda_device)
+    _, quads = rotate_boxes(t[..., :5])
+    active = t[..., 5] > -1
+    areas = quad_areas(quads)
+    amin, amax = quad_areas(anchors).aminmax()
+    active &= (areas >= 0.4 * amin) & (areas * 0.4 <= amax)
+    rows, n_act = pack_active(quads, active)
+    got_iou, got_slot = kmatch.rotated_match(anchors, rows, n_act)
+    torch.cuda.synchronize()
+    want_iou, want_slot = kmatch.rotated_match_plain(anchors, rows, n_act)
+    hit = want_iou > 0
+    assert hit.sum() > 1000 and (~hit).sum() > 1000
+    assert torch.equal(got_iou[hit], want_iou[hit])
+    assert torch.equal(got_slot[hit], want_slot[hit])
+    assert (got_iou[~hit] <= 0).all()
+    assert (got_iou[1] == -2).all() and (got_slot[1] == 0).all()
+    assert (got_iou == -2).sum() > (want_iou == -2).sum()   # the tile skip
+
+
+@pytest.mark.cuda
+def test_rotated_assignment_through_the_kernel_equals_plain(cuda_device,
+                                                           monkeypatch):
+    """The assignment on the card through the matcher kernel against the
+    same assignment through the plain matcher: depth equal everywhere;
+    cls and deltas equal on the foreground."""
+    _, t, table = match_case(device=cuda_device)
+    before = kmatch.rotated_match.launches
+    cls, deltas, depth = snap_to_anchors_rotated_batched(t, (320, 256), 8,
+                                                         table, 80)
+    torch.cuda.synchronize()
+    assert kmatch.rotated_match.launches == before + 1
+    monkeypatch.setattr(kmatch, 'rotated_match', kmatch.rotated_match_plain)
+    w_cls, w_deltas, w_depth = snap_to_anchors_rotated_batched(
+        t, (320, 256), 8, table, 80)
+    assert torch.equal(depth, w_depth)
+    fg = w_depth > 0
+    assert fg.sum() > 50
+    assert torch.equal(cls[fg], w_cls[fg])
+    assert torch.equal(deltas[fg], w_deltas[fg])
+
+
+@pytest.mark.cuda
+def test_rotated_best_match_kernel_equals_plain(cuda_device):
+    """The unbatched variant: every target visited, invalid ones -1, no
+    skip; IoU and index equal everywhere."""
+    anchors, t, _ = match_case(device=cuda_device)
+    _, quads = rotate_boxes(t[0, :, :5])
+    valid = t[0, :, 5] > -1
+    got = kmatch.rotated_best_match(anchors, quads, valid)
+    torch.cuda.synchronize()
+    want = kmatch.rotated_best_match_plain(anchors, quads, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0] > 0.5).any()
+
+
+def test_rotated_kernel_wrappers_reject_bad_input():
+    meta = torch.zeros(1, 10, device='meta')
+    with pytest.raises(ValueError):
+        knms_rot.nms_rotated(meta, torch.zeros(1, 10, 6, device='meta'), meta)
+    with pytest.raises(ValueError):
+        kmatch.rotated_match(torch.zeros(10, 8, device='meta'),
+                             torch.zeros(1, 3, 9, device='meta'),
+                             torch.zeros(1, device='meta'))
+    with pytest.raises(ValueError):
+        kmatch.rotated_best_match(torch.zeros(10, 8, device='meta'),
+                                  torch.zeros(3, 8, device='meta'),
+                                  torch.zeros(3, device='meta'))
+
+
+def test_rotated_nms_plain_semantics():
+    """Zero-padded and score-descending; a box identical to a kept one of
+    its class is suppressed, one of another class is not."""
+    s, b, c = (torch.from_numpy(a) for a in rotated_nms_case('random',
+                                                              n=200))
+    b[:, 1] = b[:, 0]
+    s[:, :3] = torch.tensor([0.999, 0.998, 0.997])
+    b[:, 2] = b[:, 0]
+    c[:, 1] = c[:, 0]
+    c[:, 2] = c[:, 0] + 1
+    out_s, out_b, out_c = knms_rot.nms_rotated_plain(s, b, c, 0.5, 150)
+    assert (out_s[:, :-1] >= out_s[:, 1:]).all()
+    kept = out_s > 0
+    assert (out_s[~kept] == 0).all() and (out_b[~kept] == 0).all()
+    for i in range(2):
+        assert (out_s[i] == 0.999).any() and (out_s[i] == 0.997).any()
+        assert not (out_s[i] == 0.998).any()
+    corners = sincos_box_corners(out_b)
+    assert torch.isfinite(corners).all()
