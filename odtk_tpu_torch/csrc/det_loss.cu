@@ -5,7 +5,8 @@
 // Replaces the TPU kernel odtk_tpu/ops/pallas/focal_kernel.py:
 // detection_loss_sums_fused (_loss_fwd_kernel with want_dx). Per element,
 // in fp32, with t = (k == cls[b, n]) and depth[b, n] > 0 (the one-hot is
-// never built), valid = depth >= 0, fg = depth > 0:
+// never built), valid = depth >= 0, fg = depth > 0, and the focal term of
+// csrc/focal.cuh (shared with csrc/focal_sum.cu):
 //
 //   s = sigmoid(x), p_t = t s + (1-t)(1-s), q = 1 - p_t
 //   ce = max(x, 0) - x t + log1p(exp(-|x|)),  a_t = t alpha + (1-t)(1-alpha)
@@ -40,24 +41,15 @@
 
 #include <cmath>
 
+#include "focal.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using odtk::focal_term;
+using odtk::from_float;
+using odtk::to_float;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+constexpr int kThreads = 256;
 
 template <typename T>
 __global__ void det_loss_kernel(const T* __restrict__ x,
@@ -86,14 +78,9 @@ __global__ void det_loss_kernel(const T* __restrict__ x,
       const long long o = xoff + (long long)k * HW;
       const float xv = to_float(x[o]);
       const float t = (k == c) ? fg : 0.f;
-      const float s = 1.f / (1.f + expf(-xv));
-      const float ce = fmaxf(xv, 0.f) - xv * t + log1pf(expf(-fabsf(xv)));
-      const float p_t = t * s + (1.f - t) * (1.f - s);
-      const float q = 1.f - p_t;
-      const float qg = gamma == 2.f ? q * q : powf(q, gamma);
-      const float a_t = t * alpha + (1.f - t) * (1.f - alpha);
-      cls_sum += valid * a_t * qg * ce;
-      const float g = -a_t * (2.f * t - 1.f) * qg * (gamma * p_t * ce + q);
+      float loss, g;
+      focal_term(xv, t, alpha, gamma, &loss, &g);
+      cls_sum += valid * loss;
       dx[o] = from_float<T>(valid * g);
     }
     const long long boff = ((long long)b * A + a) * D * HW + hw;

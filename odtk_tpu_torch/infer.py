@@ -1,8 +1,11 @@
 """Inference / evaluation workflow on one device.
 
-Counterpart of ``odtk_tpu/infer.py`` for a checkpoint model and one
-process (``world == 1``). Batches come from the port's copy of the
-``DataIterator`` on the u8 eval feed; each batch goes to
+Counterpart of ``odtk_tpu/infer.py`` for one process (``world == 1``),
+on a checkpoint model or an exported ``Engine`` (``export.py``). Batches
+come from the port's copy of the ``DataIterator``: for a model on the u8
+eval feed, for an engine on the f32 feed (normalized on the host) at the
+engine's fixed input size, the contract its programs were exported with
+(``odtk_tpu/infer.py:36-56``). Each batch goes to
 the device from pinned host memory with a non-blocking copy, the whole
 normalize -> backbone -> heads -> decode -> NMS path runs there, and the
 results stay on the device until the gather after the last batch, so the
@@ -61,10 +64,14 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     ``stats``, the COCO stats when ``annotations`` are given and there
     are detections, else None; ``batch_ms``, the intervals between
     consecutive batches (see ``BatchClock``)."""
-    device = torch.device(device)
+    engine = hasattr(model, 'input_size')
+    device = model.device if engine else torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device cuda requested but no CUDA device is '
                            'available (pass --device cpu to run on the CPU)')
+    if engine:
+        # engines are exported for a fixed input size
+        fixed_size = model.input_size
     if fixed_size is not None:
         max_size = max(fixed_size)
 
@@ -73,15 +80,20 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
     data_iterator = iterator_cls(
         path, resize, max_size, batch_size, model.stride, 1, annotations,
-        training=False, fixed_size=fixed_size, emit='u8')
+        training=False, fixed_size=fixed_size,
+        emit='f32' if engine else 'u8')
     if verbose:
         print(data_iterator)
 
-    model.to(device)
-    if mixed_precision:
-        model.set_dtype(torch.bfloat16)
+    if engine:
+        precision = model.meta['precision']
+    elif mixed_precision:
+        model.to(device).set_dtype(torch.bfloat16)
+        precision = 'mixed (bf16)'
     else:
-        model.set_dtype(torch.float32)
+        model.to(device).set_dtype(torch.float32)
+        precision = 'full (fp32)'
+    if precision in ('full (fp32)', 'fp32', 'FP32'):
         # full precision means fp32 arithmetic: cuDNN convolutions and
         # matmuls would otherwise run in TF32 on the card
         torch.backends.cudnn.allow_tf32 = False
@@ -90,24 +102,29 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     if verbose:
         name = (torch.cuda.get_device_name(device) if device.type == 'cuda'
                 else 'CPU')
-        print('   backend: torch {}'.format(torch.__version__))
+        print('   backend: torch {}{}'.format(
+            torch.__version__, ', engine' if engine else ''))
         print('    device: {}'.format(name))
-        print('     batch: {}, precision: {}'.format(
-            batch_size, 'mixed (bf16)' if mixed_precision else 'full (fp32)'))
+        print('     batch: {}, precision: {}'.format(batch_size, precision))
         print(' BBOX type:', 'rotated' if rotated_bbox else 'axis aligned')
         print('Running inference...')
 
     pin = device.type == 'cuda'
     results = []
     clock = BatchClock(device)
-    for data, ids, ratios, sizes in data_iterator:
+    for data, ids, ratios, *sizes in data_iterator:
         images = torch.from_numpy(data)
-        sizes = torch.from_numpy(sizes)
         if pin:
-            images, sizes = images.pin_memory(), sizes.pin_memory()
+            images = images.pin_memory()
         images = images.to(device, non_blocking=True)
-        sizes = sizes.to(device, non_blocking=True)
-        scores, boxes, classes = model.inference_fn_u8(images, sizes)
+        if engine:
+            scores, boxes, classes = model(images)
+        else:
+            sizes = torch.from_numpy(sizes[0])
+            if pin:
+                sizes = sizes.pin_memory()
+            sizes = sizes.to(device, non_blocking=True)
+            scores, boxes, classes = model.inference_fn_u8(images, sizes)
         results.append([scores, boxes, classes, ids, ratios])
         clock.mark()
 

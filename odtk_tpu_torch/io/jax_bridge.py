@@ -32,6 +32,13 @@ def _split_token(token):
     return out
 
 
+def module_name(path):
+    """A flax module path ('backbones_ResNet18FPN/features/layer1_0/conv1',
+    the JAX package's calibration-table key) -> the port's module name
+    ('backbones.ResNet18FPN.features.layer1.0.conv1')."""
+    return '.'.join(p for t in path.split('/') for p in _split_token(t))
+
+
 def state_dict_from_jax(variables):
     """JAX ``{'params': ..., 'frozen': ...}`` pytree of array-likes ->
     {torch key: fp32 CPU tensor}, ready for ``load_state_dict``."""

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""odtk-tpu-torch CLI: train, infer.
+"""odtk-tpu-torch CLI: train, infer, export.
 
-Flag-compatible with ``odtk-tpu train`` and ``odtk-tpu infer``
-(``odtk_tpu/main.py``) for checkpoint models, axis-aligned or rotated
-(``--rotated-bbox``; a checkpoint with ``angles`` implies it), plus
+Flag-compatible with ``odtk-tpu train``, ``infer`` and ``export``
+(``odtk_tpu/main.py``), axis-aligned or rotated (``--rotated-bbox``; a
+checkpoint with ``angles``, or a rotated engine, implies it), plus
 ``--device`` (default ``cuda``). With ``cuda`` and no card it raises;
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-CPU. The flags of what is
-not ported yet raise and name the ROADMAP item; ``--with-dali`` and
-``--with-apex`` are compatibility no-ops, as in the JAX CLI. ``export``
-is not ported yet.
+CPU. ``export`` writes an engine (``export.py``) for the device it runs
+on; ``infer`` on a path with an engine extension loads one. The flags
+and targets of what is not ported yet raise and name the ROADMAP item;
+``--with-dali`` and ``--with-apex`` are compatibility no-ops, as in the
+JAX CLI.
 """
 
 import argparse
 import os
 import random
 import sys
+
+ENGINE_EXTS = ('.engine', '.plan')
 
 # flag -> the ROADMAP item that ports it
 _NOT_PORTED = {
@@ -164,7 +167,9 @@ def parse(args):
     _add_common(pt)
 
     pi = subparsers.add_parser('infer', help='run inference')
-    pi.add_argument('model', type=str, help='checkpoint (.pth) to run')
+    pi.add_argument('model', type=str,
+                    help='checkpoint (.pth) or engine (.engine, .plan) to '
+                         'run')
     pi.add_argument('--images', metavar='path', type=str, default='.',
                     help='directory of images to process')
     pi.add_argument('--annotations', metavar='annotations', type=str,
@@ -191,6 +196,55 @@ def parse(args):
                     help='letterbox inputs to a fixed canvas: one value for '
                          'square, or height width')
     _add_common(pi)
+
+    pe = subparsers.add_parser('export', help='export a model into an '
+                               'inference engine')
+    pe.add_argument('model', type=str, help='checkpoint to export')
+    pe.add_argument('export', type=str,
+                    help='path of the engine to write (.engine, .plan)')
+    pe.add_argument('--size', metavar='height width', type=int, nargs='+',
+                    default=[1280], help='fixed engine input: one value for '
+                                         'square, or height width')
+    pe.add_argument('--full-precision', action='store_true',
+                    help='keep fp32 compute instead of bf16')
+    pe.add_argument('--input-format', choices=['f32', 'u8'], default='f32',
+                    dest='input_format',
+                    help='.cppengine input contract (not ported yet)')
+    pe.add_argument('--int8', action='store_true',
+                    help='run INT8 calibration and emit an int8 engine')
+    pe.add_argument('--calibration-batches', metavar='size', type=int,
+                    default=2, help='how many calibration batches to sample')
+    pe.add_argument('--calibration-images', metavar='path', type=str,
+                    default='', help='directory of images for INT8 '
+                                     'calibration')
+    pe.add_argument('--calibration-table', metavar='path', type=str,
+                    default='', help='calibration table to reuse (or '
+                                     'filename to create)')
+    pe.add_argument('--calibration-percentile', metavar='value', type=float,
+                    default=None,
+                    help='clip activation ranges at this percentile of '
+                         '|input| (e.g. 99.9) instead of absmax')
+    pe.add_argument('--calibration-entropy', action='store_true',
+                    help='pick each layer\'s INT8 clipping threshold by '
+                         'KL-divergence over activation histograms (the '
+                         'TensorRT IInt8EntropyCalibrator2 rule)')
+    pe.add_argument('--verbose', action='store_true',
+                    help='print export progress')
+    pe.add_argument('--rotated-bbox', action='store_true',
+                    help='model predicts rotated boxes')
+    pe.add_argument('--dynamic-batch-opts', metavar='value value value',
+                    type=int, nargs=3, default=[1, 8, 16],
+                    help='export these batch-size profiles (min, opt, max)')
+    # post-processing settings baked into the engine
+    pe.add_argument('--threshold', metavar='value', type=float, default=None,
+                    help='score threshold baked into decode')
+    pe.add_argument('--top-n', metavar='num', type=int, default=None,
+                    help='per-image candidate budget before NMS')
+    pe.add_argument('--nms', metavar='value', type=float, default=None,
+                    help='NMS IoU threshold')
+    pe.add_argument('--detections', metavar='num', type=int, default=None,
+                    help='max detections emitted per image')
+    _add_common(pe)
     return parser.parse_args(args)
 
 
@@ -213,9 +267,14 @@ def _refuse_unported(args):
 
 def load_model(args):
     """(Model, resume state): a fresh model for ``train`` without a
-    checkpoint (or with ``--override``), else the checkpoint's."""
+    checkpoint (or with ``--override``), an ``Engine`` for ``infer`` on an
+    engine file, else the checkpoint's."""
     from .model import Model
 
+    if args.command == 'infer' and args.model.endswith(ENGINE_EXTS):
+        from .export import Engine
+        print('Loading engine from {}...'.format(os.path.basename(args.model)))
+        return Engine.load(args.model, device=args.device), {}
     if args.command == 'train' and (args.override
                                     or not os.path.exists(args.model)):
         print('Initializing model...')
@@ -268,10 +327,14 @@ def run(args, model, state):
             rotated_bbox=args.rotated_bbox,
             absolute_angle=args.absolute_angle)
 
-    if args.threshold is not None:
-        model.threshold = args.threshold
-    if args.detections is not None:
-        model.detections = args.detections
+    if args.command == 'export':
+        return export(args, model)
+
+    if not hasattr(model, 'input_size'):           # not an engine
+        if args.threshold is not None:
+            model.threshold = args.threshold
+        if args.detections is not None:
+            model.detections = args.detections
     fixed_size = args.fixed_size
     if fixed_size is not None:
         fixed_size = tuple(fixed_size * 2 if len(fixed_size) == 1
@@ -282,6 +345,56 @@ def run(args, model, state):
         mixed_precision=not args.full_precision, verbose=True,
         fixed_size=fixed_size, device=args.device,
         rotated_bbox=args.rotated_bbox)
+
+
+def _find_calibration_images(directory, want, minimum):
+    """Sample ``want`` JPEG/PNG files from a directory for INT8
+    calibration; error below ``minimum`` (cannot fill one opt batch)."""
+    found = sorted(
+        os.path.join(directory, f) for f in os.listdir(directory)
+        if f.lower().endswith(('.jpg', '.jpeg', '.png')))
+    if len(found) < minimum:
+        raise RuntimeError(
+            'Not enough images found for calibration. ({} < {})'.format(
+                len(found), minimum))
+    random.shuffle(found)
+    return found[:want]
+
+
+def export(args, model):
+    """The ``export`` command (``odtk_tpu/main.py:435-471``): the
+    post-processing overrides baked in, calibration images sampled for
+    INT8, the engine exported on ``--device``."""
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('device cuda requested but no CUDA device is '
+                           'available (pass --device cpu to export for the '
+                           'CPU)')
+    model.to(device)
+    input_size = args.size * 2 if len(args.size) == 1 else args.size[:2]
+    for flag in ('threshold', 'top_n', 'nms', 'detections'):
+        value = getattr(args, flag)
+        if value is not None:
+            setattr(model, flag, value)
+    if args.top_n is not None:
+        model.fused_top_n = 2 * model.top_n     # keeps the derived default
+
+    calibration_files = []
+    if args.int8 and os.path.isdir(args.calibration_images):
+        calibration_files = _find_calibration_images(
+            args.calibration_images,
+            want=args.calibration_batches * args.dynamic_batch_opts[1],
+            minimum=args.dynamic_batch_opts[1])
+    precision = 'FP32' if args.full_precision else 'FP16'
+    if args.int8:
+        precision = 'INT8'
+    return model.export(input_size, args.dynamic_batch_opts, precision,
+                        calibration_files, args.calibration_table,
+                        args.verbose, path=args.export,
+                        calibration_percentile=args.calibration_percentile,
+                        calibration_entropy=args.calibration_entropy)
 
 
 def main(args=None):

@@ -271,13 +271,11 @@ class Model:
         return (torch.stack(cls_losses).sum() / fg_total,
                 torch.stack(box_losses).sum() / fg_total)
 
-    @torch.inference_mode()
-    def candidates(self, images):
-        """Decoded candidates before NMS: (scores [B, N], boxes [B, N, 4]
-        or [B, N, 6] rotated, classes [B, N]), N = fused_top_n on the
-        fused path."""
-        cls_heads, box_heads = self.forward_heads(images)
-        strides = [images.shape[2] // ch.shape[2] for ch in cls_heads]
+    def decode_heads(self, cls_heads, box_heads, width):
+        """Decoded candidates of NHWC heads of images ``width`` pixels
+        wide, before NMS: (scores [B, N], boxes [B, N, 4] or [B, N, 6]
+        rotated, classes [B, N]), N = fused_top_n on the fused path."""
+        strides = [width // ch.shape[2] for ch in cls_heads]
         tables = [self.anchors(s) for s in strides]
         if self.rotated_bbox:
             tables = [t[0] for t in tables]       # the axis-aligned half
@@ -292,14 +290,27 @@ class Model:
                                            tables)]
         return tuple(torch.cat(parts, dim=1) for parts in zip(*decoded))
 
+    def postprocess(self, cls_heads, box_heads, width):
+        """``decode_heads`` then NMS (the rotated NMS for a rotated model):
+        (scores [B, D], boxes [B, D, 4 or 6], classes [B, D]). Traceable by
+        ``torch.export`` (``export.py``)."""
+        nms_fn = nms_rotated if self.rotated_bbox else nms
+        return nms_fn(*self.decode_heads(cls_heads, box_heads, width),
+                      self.nms, self.detections)
+
+    @torch.inference_mode()
+    def candidates(self, images):
+        """Decoded candidates before NMS of NHWC images (``decode_heads``)."""
+        cls_heads, box_heads = self.forward_heads(images)
+        return self.decode_heads(cls_heads, box_heads, images.shape[2])
+
     @torch.inference_mode()
     def inference_fn(self, images):
         """Full post-processed inference on NHWC images:
         (scores [B, D], boxes [B, D, 4], classes [B, D]), score-descending
         and zero-padded; rotated boxes are [B, D, 6] (x1, y1, x2, y2,
         sin, cos), through the rotated NMS."""
-        nms_fn = nms_rotated if self.rotated_bbox else nms
-        return nms_fn(*self.candidates(images), self.nms, self.detections)
+        return self.postprocess(*self.forward_heads(images), images.shape[2])
 
     @torch.inference_mode()
     def inference_fn_u8(self, images_u8, sizes):
@@ -312,6 +323,21 @@ class Model:
     def save(self, state):
         from .io import checkpoint
         checkpoint.save(self, state)
+
+    def export(self, size, dynamic_batch_opts=None, precision='bf16',
+               calibration_files=None, calibration_table=None,
+               verbose=False, path=None, calibration_percentile=None,
+               calibration_entropy=False):
+        """Export to an inference engine on the model's device
+        (``export.export_model``)."""
+        from . import export as export_mod
+        return export_mod.export_model(
+            self, size, precision=precision, path=path,
+            dynamic_batch_opts=dynamic_batch_opts,
+            calibration_files=calibration_files,
+            calibration_table=calibration_table,
+            calibration_percentile=calibration_percentile,
+            calibration_entropy=calibration_entropy, verbose=verbose)
 
     @classmethod
     def load(cls, filename, device='cpu', rotated_bbox=False):

@@ -35,6 +35,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     'odtk_nms': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     'odtk_stem_pool': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -46,6 +47,10 @@ _SIGNATURES = {
     'odtk_nms_rotated': [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     'odtk_match_rotated': [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     'odtk_rotated_best_match': [_P, _P, _I, _I, _P, _P, _P],
+    'odtk_focal_sum': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _L,
+                       _L, _F, _F, _P],
+    'odtk_focal_sum_dx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                          _L, _F, _F, _P],
 }
 
 

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``odtk_tpu/ops/pallas/nms_kernel.py:nms_pallas``.
 On the card the cost is D dependent selection rounds, not bytes; the
 kernel keeps all candidates of an image in the registers of one
 1024-thread block and runs every round there (see the note in
-csrc/nms.cu). ``nms`` takes the plain version for a tensor on the CPU
-and the kernel for a CUDA tensor; there is no fallback between them.
+csrc/nms.cu). ``nms`` calls the ``odtk::nms`` operator, whose CPU
+implementation is the plain version and whose CUDA one the kernel, so an
+exported graph keeps the kernel; there is no fallback between them.
 """
 
 import torch
@@ -59,20 +60,36 @@ def nms_plain(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
 
 
 def nms(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
-    """Batched NMS: the plain version on the CPU, the kernel on CUDA."""
-    if scores.device.type == 'cpu':
-        return nms_plain(scores, boxes, classes, nms_thresh, ndetections)
-    if scores.device.type != 'cuda':
+    """Batched NMS through the ``odtk::nms`` operator: the plain version
+    on the CPU, the kernel on CUDA."""
+    if scores.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'nms: no kernel for device {scores.device}')
+    if scores.device.type == 'cuda':
+        b, n = scores.shape
+        if boxes.shape != (b, n, 4) or classes.shape != (b, n):
+            raise ValueError(f'nms: shapes {tuple(scores.shape)}, '
+                             f'{tuple(boxes.shape)}, {tuple(classes.shape)}')
+        if n > MAX_CANDIDATES:
+            raise ValueError(f'nms: {n} candidates, the kernel takes at most '
+                             f'{MAX_CANDIDATES}')
+        if not (boxes.device == classes.device == scores.device):
+            raise ValueError('nms: inputs on different devices')
+    return torch.ops.odtk.nms(scores, boxes, classes, float(nms_thresh),
+                              int(ndetections))
+
+
+# The operator that an exported graph (``odtk_tpu_torch/export.py``) keeps:
+# its CPU implementation is the plain version, its CUDA one the kernel.
+@torch.library.custom_op('odtk::nms', mutates_args=(), device_types='cpu')
+def _nms_op(scores: torch.Tensor, boxes: torch.Tensor, classes: torch.Tensor,
+            nms_thresh: float, ndetections: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return nms_plain(scores, boxes, classes, nms_thresh, ndetections)
+
+
+@_nms_op.register_kernel('cuda')
+def _nms_cuda(scores, boxes, classes, nms_thresh, ndetections):
     b, n = scores.shape
-    if boxes.shape != (b, n, 4) or classes.shape != (b, n):
-        raise ValueError(f'nms: shapes {tuple(scores.shape)}, '
-                         f'{tuple(boxes.shape)}, {tuple(classes.shape)}')
-    if n > MAX_CANDIDATES:
-        raise ValueError(f'nms: {n} candidates, the kernel takes at most '
-                         f'{MAX_CANDIDATES}')
-    if not (boxes.device == classes.device == scores.device):
-        raise ValueError('nms: inputs on different devices')
     scores = scores.float().contiguous()
     boxes = boxes.float().contiguous()
     classes = classes.float().contiguous()
@@ -86,12 +103,20 @@ def nms(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
     with torch.cuda.device(scores.device):
         rc = _build.library().odtk_nms(
             scores.data_ptr(), boxes.data_ptr(), classes.data_ptr(), b, n,
-            ndetections, float(nms_thresh), out_s.data_ptr(),
-            out_b.data_ptr(), out_c.data_ptr(),
-            _build.stream_handle(scores.device))
+            ndetections, nms_thresh, out_s.data_ptr(), out_b.data_ptr(),
+            out_c.data_ptr(), _build.stream_handle(scores.device))
     _build.check(rc, 'odtk_nms')
     nms.launches += 1
     return out_s, out_b, out_c
+
+
+@_nms_op.register_fake
+def _nms_fake(scores, boxes, classes, nms_thresh, ndetections):
+    b = scores.shape[0]
+    f32 = dict(dtype=torch.float32)
+    return (scores.new_empty(b, ndetections, **f32),
+            scores.new_empty(b, ndetections, 4, **f32),
+            scores.new_empty(b, ndetections, **f32))
 
 
 nms.launches = 0

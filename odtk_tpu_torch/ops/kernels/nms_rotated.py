@@ -8,8 +8,9 @@ each candidate's quad clipped against the winner's (``ops/iou_rotated.py``
 and its device twin ``csrc/quad_iou.cuh``). On the card the cost is the
 D dependent rounds: the kernel keeps an image's scores in the shared
 memory of one block for all of them (see the note in csrc/nms_rotated.cu).
-``nms_rotated`` takes the plain version for a tensor on the CPU and the
-kernel for a CUDA tensor; there is no fallback between them.
+``nms_rotated`` calls the ``odtk::nms_rotated`` operator, whose CPU
+implementation is the plain version and whose CUDA one the kernel, so an
+exported graph keeps the kernel; there is no fallback between them.
 """
 
 import torch
@@ -61,22 +62,38 @@ def nms_rotated_plain(scores, boxes, classes, nms_thresh=0.5,
 
 
 def nms_rotated(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
-    """Batched rotated NMS: the plain version on the CPU, the kernel on
-    CUDA. Same contract as ``nms_rotated_plain``."""
-    if scores.device.type == 'cpu':
-        return nms_rotated_plain(scores, boxes, classes, nms_thresh,
-                                 ndetections)
-    if scores.device.type != 'cuda':
+    """Batched rotated NMS through the ``odtk::nms_rotated`` operator: the
+    plain version on the CPU, the kernel on CUDA. Same contract as
+    ``nms_rotated_plain``."""
+    if scores.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'nms_rotated: no kernel for device {scores.device}')
+    if scores.device.type == 'cuda':
+        b, n = scores.shape
+        if boxes.shape != (b, n, 6) or classes.shape != (b, n):
+            raise ValueError(f'nms_rotated: shapes {tuple(scores.shape)}, '
+                             f'{tuple(boxes.shape)}, {tuple(classes.shape)}')
+        if n > MAX_CANDIDATES:
+            raise ValueError(f'nms_rotated: {n} candidates, the kernel takes '
+                             f'at most {MAX_CANDIDATES}')
+        if not (boxes.device == classes.device == scores.device):
+            raise ValueError('nms_rotated: inputs on different devices')
+    return torch.ops.odtk.nms_rotated(scores, boxes, classes,
+                                      float(nms_thresh), int(ndetections))
+
+
+# The operator that an exported graph (``odtk_tpu_torch/export.py``) keeps:
+# its CPU implementation is the plain version, its CUDA one the kernel.
+@torch.library.custom_op('odtk::nms_rotated', mutates_args=(),
+                         device_types='cpu')
+def _nms_rotated_op(scores: torch.Tensor, boxes: torch.Tensor,
+                    classes: torch.Tensor, nms_thresh: float, ndetections: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return nms_rotated_plain(scores, boxes, classes, nms_thresh, ndetections)
+
+
+@_nms_rotated_op.register_kernel('cuda')
+def _nms_rotated_cuda(scores, boxes, classes, nms_thresh, ndetections):
     b, n = scores.shape
-    if boxes.shape != (b, n, 6) or classes.shape != (b, n):
-        raise ValueError(f'nms_rotated: shapes {tuple(scores.shape)}, '
-                         f'{tuple(boxes.shape)}, {tuple(classes.shape)}')
-    if n > MAX_CANDIDATES:
-        raise ValueError(f'nms_rotated: {n} candidates, the kernel takes at '
-                         f'most {MAX_CANDIDATES}')
-    if not (boxes.device == classes.device == scores.device):
-        raise ValueError('nms_rotated: inputs on different devices')
     scores = scores.float().contiguous()
     boxes = boxes.float().contiguous()
     classes = classes.float().contiguous()
@@ -91,12 +108,21 @@ def nms_rotated(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
     with torch.cuda.device(scores.device):
         rc = _build.library().odtk_nms_rotated(
             scores.data_ptr(), boxes.data_ptr(), corners.data_ptr(),
-            classes.data_ptr(), b, n, ndetections, float(nms_thresh),
+            classes.data_ptr(), b, n, ndetections, nms_thresh,
             out_s.data_ptr(), out_b.data_ptr(), out_c.data_ptr(),
             _build.stream_handle(scores.device))
     _build.check(rc, 'odtk_nms_rotated')
     nms_rotated.launches += 1
     return out_s, out_b, out_c
+
+
+@_nms_rotated_op.register_fake
+def _nms_rotated_fake(scores, boxes, classes, nms_thresh, ndetections):
+    b = scores.shape[0]
+    f32 = dict(dtype=torch.float32)
+    return (scores.new_empty(b, ndetections, **f32),
+            scores.new_empty(b, ndetections, 6, **f32),
+            scores.new_empty(b, ndetections, **f32))
 
 
 nms_rotated.launches = 0

@@ -7,7 +7,9 @@ its forward that saves the window argmax (``bn_relu_pool_idx``) and its
 backward (``bn_relu_pool_bwd``), tied together by ``bn_relu_pool_train``.
 All are bound by memory bandwidth (see the note in csrc/stem_pool.cu).
 Each wrapper takes the plain version for a tensor on the CPU and the
-kernel for a CUDA tensor; there is no fallback between them. The BN
+kernel for a CUDA tensor; there is no fallback between them. The primal
+forward goes through the ``odtk::bn_relu_pool`` operator (CPU: plain,
+CUDA: kernel), so an exported graph keeps the kernel. The BN
 scale and shift are frozen (no gradient), as the JAX package's
 ``frozen`` collection is.
 """
@@ -73,10 +75,24 @@ def _pooled(hc, wc):
 def bn_relu_pool(y, scale, shift):
     """Fused stem tail on the NCHW conv1 output y [B, C, Hc, Wc] with the
     folded BN affine scale, shift [C] -> [B, C, Hp, Wp] in y's dtype.
-    The primal forward: it saves nothing for a backward."""
-    if y.device.type == 'cpu':
-        return bn_relu_pool_plain(y, scale, shift)
-    scale, shift = _check('bn_relu_pool', y, scale, shift)
+    The primal forward, through the ``odtk::bn_relu_pool`` operator: it
+    saves nothing for a backward."""
+    if y.device.type != 'cpu':
+        scale, shift = _check('bn_relu_pool', y, scale, shift)
+    return torch.ops.odtk.bn_relu_pool(y, scale, shift)
+
+
+# The operator that an exported graph (``odtk_tpu_torch/export.py``) keeps:
+# its CPU implementation is the plain version, its CUDA one the kernel.
+@torch.library.custom_op('odtk::bn_relu_pool', mutates_args=(),
+                         device_types='cpu')
+def _bn_relu_pool_op(y: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor) -> torch.Tensor:
+    return bn_relu_pool_plain(y, scale, shift)
+
+
+@_bn_relu_pool_op.register_kernel('cuda')
+def _bn_relu_pool_cuda(y, scale, shift):
     b, c, hc, wc = y.shape
     out = y.new_empty(b, c, *_pooled(hc, wc))
     if out.numel() == 0:
@@ -89,6 +105,12 @@ def bn_relu_pool(y, scale, shift):
     _build.check(rc, 'odtk_stem_pool')
     bn_relu_pool.launches += 1
     return out
+
+
+@_bn_relu_pool_op.register_fake
+def _bn_relu_pool_fake(y, scale, shift):
+    b, c, hc, wc = y.shape
+    return y.new_empty(b, c, *_pooled(hc, wc))
 
 
 def bn_relu_pool_idx(y, scale, shift):

@@ -12,9 +12,11 @@ import torch
 
 def focal_loss(logits, targets, alpha=0.25, gamma=2.0):
     """Elementwise sigmoid focal loss (https://arxiv.org/abs/1708.02002):
-    BCE-with-logits weighted by alpha_t * (1 - p_t)^gamma."""
-    logits = logits.float()
-    targets = targets.float()
+    BCE-with-logits weighted by alpha_t * (1 - p_t)^gamma. fp32, or
+    float64 for float64 logits (the kernels' checks' reference)."""
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    logits = logits.to(dtype)
+    targets = targets.to(dtype)
     p = torch.sigmoid(logits)
     # stable BCE with logits: max(x, 0) - x*t + log(1 + exp(-|x|))
     ce = (torch.clamp(logits, min=0) - logits * targets

@@ -44,6 +44,7 @@ STEPS = 10
 # copies, cat, reductions); the training families serve profile_train
 FAMILIES = [
     ('nms kernel', ('nms_kernel',)),
+    ('rotated nms kernel', ('nms_rotated_kernel',)),
     ('stem backward kernel', ('stem_pool_bwd',)),
     ('stem kernel', ('stem_pool',)),
     ('det_loss kernel', ('det_loss',)),
@@ -51,7 +52,7 @@ FAMILIES = [
     ('conv layout transform', ('nchwtonhwc', 'nhwctonchw',
                                'tensortransform')),
     ('conv / GEMM math', ('xmma', 'cutlass', 'nvjet', 'gemm', 'cudnn',
-                          'fprop', 'convolve')),
+                          'fprop', 'convolve', 'fft')),
     ('topk / sort', ('topk', 'sort', 'radix')),
     ('memcpy / memset', ('memcpy', 'memset')),
 ]

@@ -15,13 +15,13 @@ import threading
 import numpy as np
 import pytest
 
-import odtk_tpu.data.native as jax_native
 from odtk_tpu.data import CocoEvaluator as JaxEvaluator
 from odtk_tpu.data import DataIterator as JaxIterator
 from odtk_tpu_torch.data import CocoEvaluator, CocoIndex, DataIterator
 from odtk_tpu_torch.data import native
 
 from synth import make_dataset
+from torch_decode_route import decode_route  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope='module')
@@ -29,20 +29,6 @@ def dataset(tmp_path_factory):
     root = tmp_path_factory.mktemp('torch_data')
     return make_dataset(str(root), n_images=5, size=(100, 130), max_boxes=3,
                         seed=4, fmt='jpg')
-
-
-@pytest.fixture(params=['pil', 'native'])
-def decode_route(request, monkeypatch):
-    """Both loaders on PIL, or both on the port's native library."""
-    if request.param == 'pil':
-        monkeypatch.setattr(native, '_load', lambda: None)
-        monkeypatch.setattr(jax_native, '_load', lambda: None)
-    else:
-        lib = native._load()
-        assert lib is not None, 'the native decoder did not build'
-        monkeypatch.setattr(lib, '_has_u8', True, raising=False)
-        monkeypatch.setattr(jax_native, '_load', lambda: lib)
-    return request.param
 
 
 def _batches(cls, img_dir, ann, random_seed, n, **kw):
@@ -90,9 +76,9 @@ def test_train_batches_equal(dataset, decode_route, feed, augment):
                  _batches(JaxIterator, img_dir, ann, 3, 3, **kw))
 
 
-def test_targets_padded_and_cut_at_max_det(dataset):
+def test_targets_padded_and_cut_at_max_det(dataset, decode_route):
     """Targets are [B, max_det, 5], -1-padded, and cut to max_det rows,
-    as in the original."""
+    as in the original (both loaders on one decode route)."""
     img_dir, ann = dataset
     kw = dict(resize=96, max_size=128, batch_size=5, stride=32, world=1,
               annotations=ann, training=True, emit='u8', shuffle=False)

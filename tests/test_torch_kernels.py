@@ -17,6 +17,7 @@ from odtk_tpu_torch.ops import (generate_anchors_rotated, rotate_boxes,
 from odtk_tpu_torch.ops.assign import level_anchors
 from odtk_tpu_torch.ops.iou_rotated import (pack_active, quad_areas,
                                             sincos_box_corners)
+from odtk_tpu_torch.ops.kernels import focal as kfocal
 from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 from odtk_tpu_torch.ops.kernels import nms as knms
@@ -115,10 +116,10 @@ def test_nms_plain_semantics():
 def test_build_compiles_every_source_for_sm90a():
     from odtk_tpu_torch.ops.kernels import _build
     names = sorted(p.rsplit('/', 1)[-1] for p in _build.sources())
-    assert names == ['det_loss.cu', 'match_rotated.cu', 'nms.cu',
-                     'nms_rotated.cu', 'stem_pool.cu']
+    assert names == ['det_loss.cu', 'focal_sum.cu', 'match_rotated.cu',
+                     'nms.cu', 'nms_rotated.cu', 'stem_pool.cu']
     assert [p.rsplit('/', 1)[-1] for p in _build.headers()] == [
-        'quad_iou.cuh']
+        'focal.cuh', 'quad_iou.cuh']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert not any('fast_math' in f for f in _build.NVCC_FLAGS)
     assert _build.library_path().startswith(_build.BUILD_DIR)
@@ -501,3 +502,110 @@ def test_rotated_nms_plain_semantics():
         assert not (out_s[i] == 0.998).any()
     corners = sincos_box_corners(out_b)
     assert torch.isfinite(corners).all()
+
+
+# ------------------------------------------------------------ focal sum
+def _focal_case(device, dtype, hw, b=2, a=9, k=80, seed=0):
+    """An NHWC view of an NCHW head (the layout the convolutions leave),
+    class indices, and depths with ignored, background and foreground
+    anchors."""
+    h, w = hw
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, a * k, h, w, generator=g) * 2).to(device, dtype)
+    n = h * w * a
+    cls_idx = torch.randint(0, k, (b, n), generator=g).float().to(device)
+    depth = torch.randint(-1, 3, (b, n), generator=g).float().to(device)
+    return x.permute(0, 2, 3, 1), cls_idx, depth, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hw', [(13, 21), (100, 144), (1, 1)])
+def test_focal_kernels_equal_plain(cuda_device, dtype, hw):
+    """Row 6: the forward sum within a relative 1e-6 of the plain one;
+    dx = d(0.37 sum)/dx elementwise against the plain version's autograd
+    in float64: within one bf16 ulp of it rounded to bf16 (bf16), or a
+    relative 1e-5 (fp32), plus 1e-10, far below the smallest values that
+    matter (the fp32 closed form, as the TPU kernel's, computes
+    q = 1 - p_t and so loses relative precision only where q and
+    |dx| ~ q^3 are tiny)."""
+    x, cls_idx, depth, k = _focal_case(cuda_device, dtype, hw)
+    g = torch.tensor(0.37, device=cuda_device)
+    got = kfocal.focal_sum_kernel(x, cls_idx, depth, k)
+    dx = kfocal.focal_sum_dx_kernel(x, cls_idx, depth, g, k)
+    torch.cuda.synchronize()
+    xf = x.detach().float().requires_grad_(True)
+    want = kfocal.focal_sum_plain(xf, cls_idx, depth, k)
+    assert abs(got.item() - want.item()) <= 1e-6 * abs(want.item())
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    x64 = x.detach().double().requires_grad_(True)
+    ref, = torch.autograd.grad(kfocal.focal_sum_plain(x64, cls_idx, depth, k),
+                               x64, g.double())
+    # at a logit of exactly 0, autograd of the plain form takes the
+    # subgradients of its clamp and abs; the kernel has the derivative
+    nz = x != 0
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(dx.double()[nz],
+                                   ref.bfloat16().double()[nz],
+                                   rtol=2 ** -7, atol=1e-10)
+    else:
+        torch.testing.assert_close(dx.double()[nz], ref[nz], rtol=1e-5,
+                                   atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_focal_dx_kernel_at_zero_logits(cuda_device):
+    """At x == 0: s = p_t = q = 1/2, ce = log 2, so d loss/dx =
+    -a_t (2t - 1) / 4 (log 2 + 1/2), the derivative, for t = 0 and 1."""
+    x = torch.zeros(1, 1, 1, 4, device=cuda_device)       # A = 1, K = 4
+    cls_idx = torch.tensor([[2.0]], device=cuda_device)
+    depth = torch.tensor([[1.0]], device=cuda_device)
+    dx = kfocal.focal_sum_dx_kernel(x, cls_idx, depth,
+                                    torch.tensor(1.0, device=cuda_device), 4)
+    unit = (np.log(2.0) + 0.5) / 4
+    want = torch.tensor([0.75 * unit, 0.75 * unit, -0.25 * unit,
+                         0.75 * unit], dtype=torch.float32,
+                        device=cuda_device)
+    torch.testing.assert_close(dx.flatten(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_focal_autograd_runs_both_kernels(cuda_device):
+    x, cls_idx, depth, k = _focal_case(cuda_device, torch.bfloat16, (9, 7))
+    fwd, bwd = (kfocal.focal_sum_kernel.launches,
+                kfocal.focal_sum_dx_kernel.launches)
+    xr = x.detach().clone().requires_grad_(True)
+    (kfocal.focal_sum(xr, cls_idx, depth, k) * 0.5).backward()
+    torch.cuda.synchronize()
+    assert kfocal.focal_sum_kernel.launches == fwd + 1
+    assert kfocal.focal_sum_dx_kernel.launches == bwd + 1
+    want = kfocal.focal_sum_dx_kernel(x, cls_idx, depth,
+                                      torch.tensor(0.5, device=cuda_device),
+                                      k)
+    assert torch.equal(xr.grad, want)
+
+
+# ------------------------------------------------- engines on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize('rotated', [False, True])
+def test_engine_on_the_card_runs_the_kernels(cuda_device, rotated):
+    """An fp32 engine exported on the card launches the stem kernel and
+    NMS (rotated NMS) once per call, and equals the checkpoint path."""
+    from odtk_tpu_torch.export import export_model
+    from odtk_tpu_torch.model import Model
+
+    model = Model('ResNet18FPN', classes=3, rotated_bbox=rotated,
+                  config={'threshold': 0.001}).initialize(0).to(cuda_device)
+    engine = export_model(model, (256, 256), precision='fp32',
+                          dynamic_batch_opts=[2])
+    nms_fn = knms_rot.nms_rotated if rotated else knms.nms
+    counts = (nms_fn.launches, kstem.bn_relu_pool.launches)
+    x = torch.randn(2, 256, 256, 3,
+                    generator=torch.Generator().manual_seed(0))
+    got = engine(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (nms_fn.launches, kstem.bn_relu_pool.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    want = model.inference_fn(x.to(cuda_device))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

@@ -183,8 +183,10 @@ def test_port_never_imports_jax():
             'import odtk_tpu_torch.io.checkpoint\n'
             'import odtk_tpu_torch.io.jax_bridge\n'
             'import odtk_tpu_torch.profile_infer\n'
+            'import odtk_tpu_torch.profile_engine\n'
             'import odtk_tpu_torch.profile_train, odtk_tpu_torch.train\n'
             'import odtk_tpu_torch.data, odtk_tpu_torch.utils\n'
+            'import odtk_tpu_torch.export, odtk_tpu_torch.quantize\n'
             'new = {m.split(".")[0] for m in set(sys.modules) - before}\n'
             'print(sorted(new & {"jax", "flax", "jaxlib", "optax",\n'
             '                    "odtk_tpu"}))\n')
@@ -197,6 +199,10 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize('name, fam', [
     ('void (anonymous namespace)::nms_kernel<2>(float const*', 'nms kernel'),
+    ('(anonymous namespace)::nms_rotated_kernel(float const*, float',
+     'rotated nms kernel'),
+    ('void DSE::vector_fft<0, 1, 256, 16, 16, 1, float, float, float2>',
+     'conv / GEMM math'),
     ('void (anonymous namespace)::stem_pool_kernel<__nv_bfloat16>',
      'stem kernel'),
     ('void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>',

@@ -42,6 +42,7 @@ from test_torch_rotated import (ANGLES, CLASSES, RATIOS, SCALES,
                                 _assert_far_from, _corners, _sincos_boxes,
                                 _t)
 from test_torch_rotated_train import _port, rotated_jax_variables
+from torch_decode_route import decode_route  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -209,11 +210,11 @@ def _epoch(cls, img_dir, random_seed, **kw):
 
 
 @pytest.mark.parametrize('augment', ['flip', 'rotate', 'absolute_angle'])
-def test_rotated_loader_matches_jax(rotated_data, augment):
+def test_rotated_loader_matches_jax(rotated_data, augment, decode_route):
     """RotatedDataIterator: images, (x, y, w, h, theta, class) targets,
     colour affines and sizes equal to the JAX loader's for the same
     seeds, with flips, 90-degree rotations and the absolute-angle
-    fold."""
+    fold, both loaders on one decode route."""
     img_dir, ann = rotated_data
     kw = dict(resize=[80, 112], max_size=128, batch_size=2, stride=32,
               world=1, annotations=ann, training=True, max_det=6, seed=7,
