@@ -21,11 +21,15 @@ give it:
      its idx equal to max_pool2d's indices mapped to codes, and the
      routing backward equal to the plain version's autograd;
   4. train: ``odtk-tpu-torch train`` for 20 steps at batch 8 (lr 0.001,
-     warmup 10), from a seeded random init; the losses finite, each of
-     the three training kernels launched the expected number of times;
-  5. loss: the fused loss kernel vs plain on the real heads and targets
-     of the first train step's five levels: sums within a relative 1e-4,
-     unit gradients elementwise;
+     warmup 10), from a seeded random init; the losses finite, each
+     training kernel launched the expected number of times (the loss's
+     forward and backward once a step for all five levels);
+  5. loss: the loss's forward kernel, and forward + backward as
+     ``Model.loss_fn`` runs them (``torch.autograd.grad`` of its loss to
+     the heads), vs plain on the real heads and targets of the first
+     train step's five levels: sums within a relative 1e-4, gradients
+     elementwise within one bf16 ulp of the plain version's autograd in
+     float64, plus 1e-12 / fg; both timed;
   6. focal-sum: the focal sum's forward and backward kernels (on no path
      of the port: the model's loss is phase 5's kernel) vs the plain
      version on the same five levels, bf16 and fp32: sums within a
@@ -57,23 +61,23 @@ give it:
  12. rotated-train: ``odtk-tpu-torch train --rotated-bbox`` for 20 steps
      at batch 8 on rotated JPEGs with up to 24 boxes each, gradients
      clipped to a global norm of 25; the losses
-     finite; per step the matcher and the loss kernel (at D = 6)
-     launched once per level, the stem's argmax forward and backward
-     once;
+     finite; per step the matcher launched once per level, the loss's
+     forward and backward kernels (at D = 6) and the stem's argmax
+     forward and backward once;
  13. rotated-match: the matcher kernel vs the plain stream on the real
      anchors and packed targets of the first rotated step's five levels
      (equal wherever the plain best IoU is > 0, <= 0 elsewhere, the
      assignment's depth equal), and its unbatched variant vs plain on
      one image of P3 (equal);
- 14. rotated-loss: the loss kernel vs plain at D = 6 on the first
-     rotated step's heads, with the loss phase's tolerances;
+ 14. rotated-loss: phase 5 at D = 6 on the first rotated step's heads;
  15. rotated-infer: ``odtk-tpu-torch infer`` on the rotated checkpoint
      (batch 2); the rotated NMS launched once per batch, detections
      non-empty, finite, with a ``segmentation`` polygon;
- 16. rotated-nms: the rotated NMS kernel vs plain on the real [2, 2000]
-     candidates of that run's first batch and on a synthetic [2, 5000]
-     case with tied scores, identical boxes, shared corners and a pair
-     next to the threshold: equal;
+ 16. rotated-nms: the rotated NMS kernel (rank, suppression bitmask,
+     scan) vs plain on the real [2, 2000] candidates of that run's first
+     batch and on a synthetic [2, 5000] case with tied scores, identical
+     boxes, shared corners and a pair next to the threshold: equal; the
+     greedy rounds' clips beside the pairs the bitmask clips;
  17. rotated-train-reference: one fp32 rotated SGD step on the card vs
      the CPU at 2 x 256 x 256, with the tolerances of phase 10;
  18. rotated-export: phase 11 for the rotated checkpoint, with a 99.9
@@ -143,6 +147,36 @@ def _median_ms(fn, runs=RUNS, warmup=3):
 def _max_abs(a, b):
     return max((x.float() - y.float()).abs().max().item() if x.numel()
                else 0.0 for x, y in zip(a, b))
+
+
+def _hold_to_float64(got, ref, rtol, atol, what, x=None, big=1e-6):
+    """Holds a kernel's gradient ``got`` elementwise to ``ref``, autograd
+    of the plain version in float64 (rounded to bf16 first where ``got``
+    is bf16): |got - ref| <= rtol |ref| + atol. Where the logit ``x`` is
+    exactly 0, autograd of the plain form takes the subgradients of its
+    clamp and abs (d ce/dx = 1 - t, not the derivative s - t = 0.5 - t
+    that the kernels and the JAX custom VJPs compute): those elements are
+    left out. Returns the largest error, the atol the rtol would need and
+    the largest relative error where |ref| > big."""
+    if got.dtype == torch.bfloat16:
+        ref = ref.to(torch.bfloat16).double()
+    diff = (got.double() - ref).abs()
+    if x is not None:
+        diff = torch.where(x == 0, 0.0, diff)
+    excess = diff - rtol * ref.abs()
+    bad = excess > atol
+    if bad.any():
+        i = int(excess.argmax())
+        raise AssertionError(
+            f'{what} off the float64 gradient at {int(bad.sum())} of '
+            f'{bad.numel()} elements: worst kernel '
+            f'{got.flatten()[i].item()!r} reference '
+            f'{ref.flatten()[i].item()!r}'
+            + (f' x {x.flatten()[i].item()!r}' if x is not None else ''))
+    large = ref.abs() > big
+    rel = ((diff[large] / ref.abs()[large]).max().item() if large.any()
+           else 0.0)
+    return diff.max().item(), excess.max().item(), rel
 
 
 def _bound(nbytes, flops):
@@ -342,11 +376,14 @@ def train_phase(root, img_dir, ann, rotated=False):
     ckpt = os.path.join(root, f'retinanet_r50fpn_{kind}_trained.pth')
     seen, snaps = [], []
 
-    def capture(*args, **kwargs):
-        if len(seen) < 5:
-            seen.append([a.detach().clone() if torch.is_tensor(a) else a
-                         for a in args])
-        return loss.detection_loss_sums(*args, **kwargs)
+    def capture(cls_heads, box_heads, cls_ts, box_ts, depths, classes,
+                **kwargs):
+        if not seen:       # the first step's levels, one list each
+            seen.extend([t.detach().clone() for t in level] + [classes]
+                        for level in zip(cls_heads, box_heads, cls_ts, box_ts,
+                                         depths))
+        return loss.detection_loss_sums_levels(
+            cls_heads, box_heads, cls_ts, box_ts, depths, classes, **kwargs)
 
     def capture_snap(*args):
         if len(snaps) < 5:
@@ -355,9 +392,10 @@ def train_phase(root, img_dir, ann, rotated=False):
         return assign.snap_to_anchors_rotated_batched(*args)
 
     # the names loss_fn calls
-    model_mod.detection_loss_sums = capture
+    model_mod.detection_loss_sums_levels = capture
     model_mod.snap_to_anchors_rotated_batched = capture_snap
-    counted = {'det_loss': loss.detection_loss_sums,
+    counted = {'det_loss': loss.detection_loss_fwd_kernel,
+               'det_loss_bwd': loss.detection_loss_bwd_kernel,
                'stem_idx': stem.bn_relu_pool_idx,
                'stem_bwd': stem.bn_relu_pool_bwd,
                'stem_primal': stem.bn_relu_pool,
@@ -377,11 +415,12 @@ def train_phase(root, img_dir, ann, rotated=False):
             + (['--rotated-bbox', '--clip-grads', str(ROTATED_CLIP_GRADS)]
                if rotated else []))
     finally:
-        model_mod.detection_loss_sums = loss.detection_loss_sums
+        model_mod.detection_loss_sums_levels = loss.detection_loss_sums_levels
         model_mod.snap_to_anchors_rotated_batched = \
             assign.snap_to_anchors_rotated_batched
     launches = {name: k.launches for name, k in counted.items()}
-    expect = {'det_loss': 5 * TRAIN_STEPS, 'stem_idx': TRAIN_STEPS,
+    expect = {'det_loss': TRAIN_STEPS, 'det_loss_bwd': TRAIN_STEPS,
+              'stem_idx': TRAIN_STEPS,
               'stem_bwd': TRAIN_STEPS, 'stem_primal': 0,
               'match_rotated': 5 * TRAIN_STEPS if rotated else 0,
               'rotated_best_match': 0}
@@ -400,58 +439,135 @@ def train_phase(root, img_dir, ann, rotated=False):
     return ckpt, launches, seen, snaps, ms, losses
 
 
+# row 5's gradients against autograd of the plain version in float64, as
+# row 6's: within one bf16 ulp (2^-7) of the reference rounded to bf16
+# (FOCAL_DX_RTOL for fp32 heads), plus LOSS_DX_ATOL times the cotangent
+# 1 / fg, far below a background logit's ~2.24e-6 / fg at the -4.6 prior
+LOSS_DX_ATOL = 1e-12
+
+
 def loss_phase(levels, label='loss'):
-    """The fused loss kernel vs plain on the first train step's five
-    levels (bf16 heads; D = 4, or 6 for the rotated model). Sums:
-    relative 1e-4 (fp32 sums of ~1e8 terms in two orders). Unit
-    gradients: one bf16 ulp (rtol 2^-7), both rounded once from fp32."""
+    """Row 5 on the first train step's five levels (bf16 heads; D = 4, or
+    6 for the rotated model): the forward kernel alone, and forward +
+    backward as ``Model.loss_fn`` runs them (``torch.autograd.grad`` of
+    its loss, the level sums over the foreground count fg, to the heads),
+    against the plain version a level at a time. Sums: relative 1e-4
+    (fp32 sums of ~1e8 terms in two orders). Gradients: elementwise
+    against the plain version's autograd in float64 (an image at a time),
+    within one bf16 ulp of it rounded to bf16, plus LOSS_DX_ATOL / fg.
+    Times are per step."""
     from odtk_tpu_torch.ops.kernels import loss
 
-    k_ms = p_ms = bound_ms = 0.0
-    err = 0.0
-    for cls_head, box_head, cls_t, box_t, depth, classes in levels:
-        sums, dx, dbx = loss.detection_loss_sums_kernel(
-            cls_head, box_head, cls_t, box_t, depth, classes)
-        xr = cls_head.detach().requires_grad_(True)
-        bxr = box_head.detach().requires_grad_(True)
-        c_sum, b_sum = loss.detection_loss_sums_plain(
-            xr, bxr, cls_t, box_t, depth, classes)
-        want_dx, want_dbx = torch.autograd.grad(c_sum + b_sum, (xr, bxr))
-        for got, want in ((sums[0], c_sum), (sums[1], b_sum)):
-            rel = abs(got.item() - want.item()) / max(abs(want.item()),
-                                                      1e-30)
-            if rel > 1e-4:
-                raise AssertionError(f'loss sums rel err {rel:.3g}')
-        torch.testing.assert_close(dx, want_dx, rtol=2 ** -7, atol=1e-6)
-        torch.testing.assert_close(dbx, want_dbx, rtol=2 ** -7, atol=1e-6)
-        err = max(err, _max_abs([sums[0], sums[1], dx, dbx],
-                                [c_sum.detach(), b_sum.detach(), want_dx,
-                                 want_dbx]))
+    cls_heads, box_heads, cls_ts, box_ts, depths, classes = (
+        list(t) for t in zip(*levels))
+    classes = classes[0]
+    fg = sum(max(int((d > 0).sum()), 1) for d in depths)
+    ops, geo = loss.kernel_operands(cls_heads, box_heads, cls_ts, box_ts,
+                                    depths, classes)
+    sums = loss.detection_loss_fwd_kernel(ops, geo, classes)
 
-        def plain():
-            xp = cls_head.detach().requires_grad_(True)
-            bp = box_head.detach().requires_grad_(True)
-            cs, bs = loss.detection_loss_sums_plain(xp, bp, cls_t, box_t,
+    def kernel_loss(heads):
+        s = loss.detection_loss_sums_levels(
+            heads[0::2], heads[1::2], cls_ts, box_ts, depths, classes)
+        return s[:, 0].sum() / fg + s[:, 1].sum() / fg
+
+    def plain_loss(heads):
+        c = b = 0
+        for x, bx, cls_t, box_t, depth in zip(heads[0::2], heads[1::2],
+                                              cls_ts, box_ts, depths):
+            cs, bs = loss.detection_loss_sums_plain(x, bx, cls_t, box_t,
                                                     depth, classes)
-            torch.autograd.grad(cs + bs, (xp, bp))
+            c, b = c + cs, b + bs
+        return c / fg + b / fg
 
-        k_ms += _median_ms(lambda: loss.detection_loss_sums_kernel(
-            cls_head, box_head, cls_t, box_t, depth, classes))
-        p_ms += _median_ms(plain)
-        s = cls_head.element_size()
-        n = depth.numel()
-        logits = cls_head.numel()
-        nbytes = (2 * logits * s + 2 * box_head.numel() * s
-                  + n * (4 + 4) + box_t.numel() * 4 + 8)
-        bound_ms += _bound(nbytes, 33 * logits + 12 * box_head.numel())[0]
-        print(f'{label} level {list(cls_head.shape)} '
-              f'{list(box_head.shape)}: sums {sums.tolist()} vs plain '
-              f'{[c_sum.item(), b_sum.item()]}, unit gradients within one '
-              f'bf16 ulp', flush=True)
-    print(f'{label}: 5 levels, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms per step', flush=True)
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                bound=(bound_ms, 'bytes'))
+    def leaves():
+        return [t.detach().requires_grad_(True)
+                for pair in zip(cls_heads, box_heads) for t in pair]
+
+    def grads(fn):
+        heads = leaves()
+        return torch.autograd.grad(fn(heads), heads)
+
+    got = grads(kernel_loss)
+    err = rel_err = 0.0
+    atol_needed = -math.inf
+    rtol = 2 ** -7 if cls_heads[0].dtype == torch.bfloat16 else FOCAL_DX_RTOL
+    for i, (x, bx, cls_t, box_t, depth) in enumerate(zip(
+            cls_heads, box_heads, cls_ts, box_ts, depths)):
+        c_sum, b_sum = loss.detection_loss_sums_plain(x, bx, cls_t, box_t,
+                                                      depth, classes)
+        for mine, plain in ((sums[i, 0], c_sum), (sums[i, 1], b_sum)):
+            rel = abs(mine.item() - plain.item()) / max(abs(plain.item()),
+                                                        1e-30)
+            if rel > 1e-4:
+                raise AssertionError(f'{label} sums rel err {rel:.3g} at '
+                                     f'level {i}')
+        err = max(err, _max_abs([sums[i, 0], sums[i, 1]], [c_sum, b_sum]))
+        # an image at a time: float64 autograd of a whole level would
+        # hold tens of GB
+        for j in range(x.shape[0]):
+            one = slice(j, j + 1)
+            x64 = x[one].detach().double().requires_grad_(True)
+            bx64 = bx[one].detach().double().requires_grad_(True)
+            c64, b64 = loss.detection_loss_sums_plain(
+                x64, bx64, cls_t[one], box_t[one], depth[one], classes)
+            refs = torch.autograd.grad((c64 + b64) / fg, (x64, bx64))
+            del x64, bx64, c64, b64
+            for mine, ref, logits, what in zip(
+                    got[2 * i:2 * i + 2], refs, (x[one], None),
+                    ('dx', 'dbx')):
+                e, need, rel = _hold_to_float64(
+                    mine[one], ref, rtol, LOSS_DX_ATOL / fg,
+                    f'{label} {what} level {i} image {j}', logits,
+                    big=1e-6 / fg)
+                err, rel_err = max(err, e), max(rel_err, rel)
+                atol_needed = max(atol_needed, need)
+            del refs
+        print(f'{label} level {list(x.shape)} {list(bx.shape)}: sums '
+              f'{sums[i].tolist()} vs plain {[c_sum.item(), b_sum.item()]}, '
+              'gradients within one bf16 ulp of the float64 gradient',
+              flush=True)
+    print(f'{label}: gradients vs float64, max abs err {err!r}, largest '
+          f'relative err where |dx| > 1e-6 / fg {rel_err!r}, atol the rtol '
+          f'needs {atol_needed!r} (allowed {LOSS_DX_ATOL / fg!r}), fg {fg}',
+          flush=True)
+
+    def plain_forward():
+        with torch.no_grad():
+            plain_loss([t for pair in zip(cls_heads, box_heads)
+                        for t in pair])
+
+    row = dict(
+        max_abs_err=err,
+        ms=_median_ms(lambda: loss.detection_loss_fwd_kernel(
+            *loss.kernel_operands(cls_heads, box_heads, cls_ts, box_ts,
+                                  depths, classes), classes)),
+        plain_ms=_median_ms(plain_forward),
+        ms_fwd_bwd=_median_ms(lambda: grads(kernel_loss)),
+        plain_ms_fwd_bwd=_median_ms(lambda: grads(plain_loss)))
+    # inputs read once: every logit, each anchor's int32 class and fp32
+    # depth, and the box head and fp32 box targets of this run's
+    # foreground anchors only (the rest have no box term or gradient);
+    # outputs written once: the sums, and with the backward dx and dbx in
+    # full. ~25 fp32 operations a logit forward and ~33 more for its
+    # gradient; ~12 and ~4 a foreground box channel
+    s = cls_heads[0].element_size()
+    logits = sum(x.numel() for x in cls_heads)
+    boxes = sum(bx.numel() for bx in box_heads)
+    fg_boxes = sum(int((d > 0).sum()) * bt.shape[-1]
+                   for d, bt in zip(depths, box_ts))
+    read = logits * s + sum(d.numel() for d in depths) * 8 + fg_boxes * (
+        s + 4)
+    row['bound'] = _bound(read + 8 * len(levels), 25 * logits + 12 * fg_boxes)
+    row['bound_fwd_bwd'] = _bound(read + 8 * len(levels)
+                                  + (logits + boxes) * s,
+                                  58 * logits + 16 * fg_boxes)
+    print(f'{label}: {len(levels)} levels, forward kernel {row["ms"]:.4f} ms '
+          f'(plain {row["plain_ms"]:.4f}, bound {row["bound"][0]:.4f}); '
+          f'forward + backward {row["ms_fwd_bwd"]:.4f} ms (plain '
+          f'{row["plain_ms_fwd_bwd"]:.4f}, bound '
+          f'{row["bound_fwd_bwd"][0]:.4f}) per step', flush=True)
+    return row
 
 
 def e2e_phase(root, ckpt, img_dir, ann, rotated=False):
@@ -764,6 +880,27 @@ def _nms_rotated_work(scores, boxes, classes, thr, ndet):
     return rounds, clips
 
 
+def _bitmask_pairs(scores, boxes, classes):
+    """The pairs the bitmask design clips (csrc/nms_rotated.cu, mask
+    step): live candidates (score > 0) of one class whose quads are not
+    both finite with axis-aligned boxes apart by more than twice
+    SKIP_MARGIN, summed over the images."""
+    from odtk_tpu_torch.ops.iou_rotated import sincos_box_corners
+    from odtk_tpu_torch.ops.kernels.nms_rotated import SKIP_MARGIN
+
+    pairs = 0
+    for s, b, c in zip(scores, boxes, classes):
+        live = s > 0
+        q = sincos_box_corners(b[live]).reshape(-1, 4, 2)
+        lo, hi = q.amin(1) - SKIP_MARGIN, q.amax(1) + SKIP_MARGIN
+        finite = torch.isfinite(q).flatten(1).all(1)
+        apart = ((lo[None] > hi[:, None]) | (lo[:, None] > hi[None])).any(-1)
+        skip = finite[:, None] & finite[None] & apart
+        same = c[live][:, None] == c[live][None]
+        pairs += int((same & ~skip).triu(1).sum())
+    return pairs
+
+
 def rotated_nms_phase(cases):
     from odtk_tpu_torch.ops.iou_rotated import (quad_iou_one_vs_all,
                                                 sincos_box_corners)
@@ -778,6 +915,7 @@ def rotated_nms_phase(cases):
                                  f'max abs diff {_max_abs(got, want)}')
         kept = int((got[0] > 0).sum())
         rounds, clips = _nms_rotated_work(s, b, c, 0.5, 100)
+        pairs = _bitmask_pairs(s, b, c)
         bsz, n = s.shape
         rows[name] = dict(
             max_abs_err=_max_abs(got, want),
@@ -795,7 +933,8 @@ def rotated_nms_phase(cases):
             iou = quad_iou_one_vs_all(corners[1:], corners[0]).item()
             extra = f', planted pair IoU {iou!r}'
         print(f'rotated-nms {name} {list(s.shape)}: equal, {kept} kept, '
-              f'{rounds} rounds, {clips} clips, kernel '
+              f'{rounds} rounds, {clips} greedy clips, {pairs} pairs '
+              f'clipped by the bitmask, kernel '
               f'{rows[name]["ms"]:.4f} ms, plain '
               f'{rows[name]["plain_ms"]:.4f} ms, bound '
               f'{rows[name]["bound"][0]:.6f} ms{extra}', flush=True)
@@ -847,32 +986,13 @@ def focal_phase(levels):
             ref, = torch.autograd.grad(focal.focal_sum_plain(
                 x64, cls_t, depth, classes), x64, g.double())
             del x64
-            if dtype == torch.bfloat16:
-                ref = ref.to(torch.bfloat16).double()
             rtol = FOCAL_DX_RTOL if dtype == torch.float32 else 2 ** -7
-            # at a logit of exactly 0 autograd of the plain form takes the
-            # subgradients of its clamp and abs (d ce/dx = 1 - t, not the
-            # derivative s - t = 0.5 - t that the kernel and the JAX custom
-            # VJP compute): those elements are left out
-            diff = torch.where(x == 0, 0.0, (dx.double() - ref).abs())
-            excess = diff - rtol * ref.abs()
-            bad = excess > FOCAL_DX_ATOL
-            if bad.any():
-                i = int(excess.argmax())
-                raise AssertionError(
-                    f'focal dx {dtype} off the float64 gradient at '
-                    f'{int(bad.sum())} of {bad.numel()} elements: worst '
-                    f'kernel {dx.flatten()[i].item()!r} reference '
-                    f'{ref.flatten()[i].item()!r} x {x.flatten()[i].item()!r}')
-            # the readings: the largest error, the atol the rtol would
-            # need, and the largest relative error where |dx| > 1e-6
-            big = ref.abs() > 1e-6
-            if big.any():
-                rel_err = max(rel_err,
-                              (diff[big] / ref.abs()[big]).max().item())
-            dx_err = max(dx_err, diff.max().item())
-            atol_needed = max(atol_needed, excess.max().item())
-            del ref, diff, excess, bad, big
+            err, need, rel = _hold_to_float64(dx, ref, rtol, FOCAL_DX_ATOL,
+                                              f'focal dx {dtype}', x)
+            dx_err = max(dx_err, err)
+            atol_needed = max(atol_needed, need)
+            rel_err = max(rel_err, rel)
+            del ref
             xa = x.clone().requires_grad_(True)
             focal.focal_sum(xa, cls_t, depth, classes).backward(g)
             if not torch.equal(xa.grad, dx):
@@ -1120,10 +1240,16 @@ def int8_check(label, got, ref):
 
 def _row(name, source, replaces, launches, row):
     bound_ms, bound_by = row['bound']
-    return dict(name=name, route='cuda', source=source, replaces=replaces,
-                launches=launches, max_abs_err=row['max_abs_err'],
-                ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    out = dict(name=name, route='cuda', source=source, replaces=replaces,
+               launches=launches, max_abs_err=row['max_abs_err'],
+               ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    if 'ms_fwd_bwd' in row:     # row 5: the forward alone, and with its
+        out.update(              # backward kernel as autograd runs them
+            launches_bwd=row['launches_bwd'], ms_fwd_bwd=row['ms_fwd_bwd'],
+            plain_ms_fwd_bwd=row['plain_ms_fwd_bwd'],
+            bound_ms_fwd_bwd=row['bound_fwd_bwd'][0])
+    return out
 
 
 def main():
@@ -1194,15 +1320,15 @@ def main():
              train_launches['stem_bwd'], dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
-             pallas + 'focal_kernel.py:186',
-             train_launches['det_loss'], loss_row),
+             pallas + 'focal_kernel.py:186', train_launches['det_loss'],
+             dict(loss_row, launches_bwd=train_launches['det_loss_bwd'])),
         _row('focal_sum', csrc + 'focal_sum.cu',
              pallas + 'focal_kernel.py:123', 0, focal_fwd[bf16]),
         _row('focal_sum_dx', csrc + 'focal_sum.cu',
              pallas + 'focal_kernel.py:147', 0, focal_bwd[bf16]),
         _row('det_loss_d6', csrc + 'det_loss.cu',
-             pallas + 'focal_kernel.py:186',
-             rot_launches['det_loss'], rot_loss_row),
+             pallas + 'focal_kernel.py:186', rot_launches['det_loss'],
+             dict(rot_loss_row, launches_bwd=rot_launches['det_loss_bwd'])),
         _row('match_rotated', csrc + 'match_rotated.cu',
              pallas + 'match_rotated_kernel.py:104',
              rot_launches['match_rotated'], match_row),

@@ -31,7 +31,7 @@ from . import backbones as backbones_mod
 from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
                   generate_anchors_rotated, nms, nms_rotated,
                   snap_to_anchors, snap_to_anchors_rotated_batched)
-from .ops.kernels.loss import detection_loss_sums
+from .ops.kernels.loss import detection_loss_sums_levels
 
 
 def _head(out_channels):
@@ -246,30 +246,32 @@ class Model:
 
         images [B, H, W, 3] normalized NHWC; targets [B, max_det, 5]
         (or [B, max_det, 6] rotated) padded with -1. Per FPN level:
-        anchors, assignment (the rotated matcher's kernel for a rotated
-        model), then the fused loss kernel (their plain versions on the
-        CPU). Both sums are divided by the foreground count, max(fg, 1)
-        per level over the whole batch, summed over the levels."""
+        anchors and assignment (the rotated matcher's kernel for a rotated
+        model); then one loss call over all levels, one forward and one
+        backward kernel launch a step on the card (their plain versions
+        on the CPU). Both sums are divided by the foreground count,
+        max(fg, 1) per level over the whole batch, summed over the
+        levels."""
         cls_heads, box_heads = self.heads(images)
         targets = targets.to(self.device, torch.float32)
-        cls_losses, box_losses, fg_counts = [], [], []
-        for cls_head, box_head in zip(cls_heads, box_heads):
+        snap = (snap_to_anchors_rotated_batched if self.rotated_bbox
+                else snap_to_anchors)
+        cls_ts, box_ts, depths = [], [], []
+        for cls_head in cls_heads:
             h, w = cls_head.shape[1:3]
             stride = images.shape[2] // w
-            snap = (snap_to_anchors_rotated_batched if self.rotated_bbox
-                    else snap_to_anchors)
             cls_t, box_t, depth = snap(
                 targets, (w * stride, h * stride), stride,
                 self.anchor_tensor(stride, self.device), self.classes,
                 self.anchor_ious)
-            fg_counts.append(torch.clamp((depth > 0).sum(), min=1))
-            c_sum, b_sum = detection_loss_sums(cls_head, box_head, cls_t,
-                                               box_t, depth, self.classes)
-            cls_losses.append(c_sum)
-            box_losses.append(b_sum)
-        fg_total = torch.stack(fg_counts).sum().float()
-        return (torch.stack(cls_losses).sum() / fg_total,
-                torch.stack(box_losses).sum() / fg_total)
+            cls_ts.append(cls_t)
+            box_ts.append(box_t)
+            depths.append(depth)
+        sums = detection_loss_sums_levels(cls_heads, box_heads, cls_ts,
+                                          box_ts, depths, self.classes)
+        fg_total = torch.stack([torch.clamp((d > 0).sum(), min=1)
+                                for d in depths]).sum().float()
+        return sums[:, 0].sum() / fg_total, sums[:, 1].sum() / fg_total
 
     def decode_heads(self, cls_heads, box_heads, width):
         """Decoded candidates of NHWC heads of images ``width`` pixels

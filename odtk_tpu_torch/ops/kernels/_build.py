@@ -42,9 +42,11 @@ _SIGNATURES = {
     'odtk_stem_pool_idx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
     'odtk_stem_pool_bwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    'odtk_det_loss': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                      _I, _I, _I, _F, _F, _F, _P],
-    'odtk_nms_rotated': [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    'odtk_det_loss_fwd': [_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                          _F, _P],
+    'odtk_det_loss_bwd': [_P, _I, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                          _P],
+    'odtk_nms_rotated': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     'odtk_match_rotated': [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     'odtk_rotated_best_match': [_P, _P, _I, _I, _P, _P, _P],
     'odtk_focal_sum': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _L,

@@ -7,7 +7,8 @@ recomputes the terms and writes dlogits (``:147``), tied together as the
 JAX custom VJP ties them (``:170-182``): the backward saves the inputs,
 not unit gradients. Both kernels are bound by memory bandwidth (see the
 note in csrc/focal_sum.cu). No path of the JAX package or of the port
-calls it: the model's loss is ``loss.detection_loss_sums`` (row 5).
+calls it: the model's loss is ``loss.detection_loss_sums_levels`` (row
+5).
 ``focal_sum`` takes the plain version for tensors on the CPU and the
 kernels for CUDA tensors; there is no fallback between them.
 """

@@ -5,9 +5,11 @@ Replaces the TPU kernel
 ``odtk_tpu/ops/pallas/nms_rotated_kernel.py:nms_rotated_pallas``. Boxes
 are (x1, y1, x2, y2, sin, cos); suppression is by the polygon IoU of
 each candidate's quad clipped against the winner's (``ops/iou_rotated.py``
-and its device twin ``csrc/quad_iou.cuh``). On the card the cost is the
-D dependent rounds: the kernel keeps an image's scores in the shared
-memory of one block for all of them (see the note in csrc/nms_rotated.cu).
+and its device twin ``csrc/quad_iou.cuh``). On the card the rounds are
+a scan in score order over a pairwise suppression bitmask: two launches
+that rank the live candidates by counting, a mask launch over 64 x 64
+tiles of ranks that holds the clips, and a one-warp scan per image that
+stops at D kept (see the note in csrc/nms_rotated.cu).
 ``nms_rotated`` calls the ``odtk::nms_rotated`` operator, whose CPU
 implementation is the plain version and whose CUDA one the kernel, so an
 exported graph keeps the kernel; there is no fallback between them.
@@ -18,7 +20,8 @@ import torch
 from ..iou_rotated import _corner_lists, clip_iou, sincos_box_corners
 from . import _build
 
-MAX_CANDIDATES = 16384     # 8 bytes each of shared memory (nms_rotated.cu)
+MAX_CANDIDATES = 16384     # the scan's bitset of ranks (nms_rotated.cu)
+SKIP_MARGIN = 0.25         # kSkipMargin: the widening of the AABB skip
 
 
 def nms_rotated_plain(scores, boxes, classes, nms_thresh=0.5,
@@ -104,12 +107,16 @@ def _nms_rotated_cuda(scores, boxes, classes, nms_thresh, ndetections):
         return out_s, out_b, out_c
     if n == 0:
         return out_s.zero_(), out_b.zero_(), out_c.zero_()
-    corners = sincos_box_corners(boxes).contiguous()
+    words = -(-n // 64)
+    # the mask, then int32 ranks, live counts, order and kept ranks
+    # (nms_rotated.cu)
+    scratch = scores.new_empty(b * (n * words * 2 + 2 * n + 1 + ndetections),
+                               dtype=torch.int32)
     with torch.cuda.device(scores.device):
         rc = _build.library().odtk_nms_rotated(
-            scores.data_ptr(), boxes.data_ptr(), corners.data_ptr(),
-            classes.data_ptr(), b, n, ndetections, nms_thresh,
-            out_s.data_ptr(), out_b.data_ptr(), out_c.data_ptr(),
+            scores.data_ptr(), boxes.data_ptr(), classes.data_ptr(), b, n,
+            ndetections, nms_thresh, scratch.data_ptr(), out_s.data_ptr(),
+            out_b.data_ptr(), out_c.data_ptr(),
             _build.stream_handle(scores.device))
     _build.check(rc, 'odtk_nms_rotated')
     nms_rotated.launches += 1

@@ -27,6 +27,8 @@ def focal_loss(logits, targets, alpha=0.25, gamma=2.0):
 
 
 def smooth_l1_loss(pred, target, beta=0.11):
-    """Elementwise smooth-L1 (Huber) with threshold beta."""
-    x = (pred.float() - target.float()).abs()
+    """Elementwise smooth-L1 (Huber) with threshold beta. fp32, or float64
+    for float64 predictions (the kernels' checks' reference)."""
+    dtype = torch.promote_types(pred.dtype, torch.float32)
+    x = (pred.to(dtype) - target.to(dtype)).abs()
     return torch.where(x >= beta, x - 0.5 * beta, 0.5 * x * x / beta)

@@ -44,7 +44,9 @@ STEPS = 10
 # copies, cat, reductions); the training families serve profile_train
 FAMILIES = [
     ('nms kernel', ('nms_kernel',)),
-    ('rotated nms kernel', ('nms_rotated_kernel',)),
+    ('rotated nms kernel', ('nms_rotated_kernel', 'nms_count', 'nms_order',
+                            'nms_mask', 'nms_scan')),
+    ('rotated matcher kernel', ('match_kernel',)),
     ('stem backward kernel', ('stem_pool_bwd',)),
     ('stem kernel', ('stem_pool',)),
     ('det_loss kernel', ('det_loss',)),

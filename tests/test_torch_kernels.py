@@ -275,55 +275,102 @@ def test_loss_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         kloss.detection_loss_sums(x, bx, cls, box_t, depth, 80)
     with pytest.raises(ValueError):   # a contiguous NHWC head
-        kloss.detection_loss_sums_kernel(x.contiguous(), bx, cls, box_t,
-                                         depth, 80)
+        kloss.kernel_operands([x.contiguous()], [bx], [cls], [box_t],
+                              [depth], 80)
+    with pytest.raises(ValueError):   # more levels than the table holds
+        n = kloss.MAX_LEVELS + 1
+        kloss.kernel_operands([x] * n, [bx] * n, [cls] * n, [box_t] * n,
+                              [depth] * n, 80)
 
 
-# sums: fp32 per element, summed in another order -> relative 1e-5;
-# unit gradients: fp32 closed form vs autograd of the dense form -> rtol
-# 1e-4 in fp32; in bf16 both round once from fp32, so one bf16 ulp
-# (rtol 2^-7)
-LOSS_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-6),
-            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
+# gradients elementwise against autograd of the dense form in float64: the
+# kernels' fast exponential and reciprocal keep fp32 within a relative
+# 1e-5; bf16 rounds once from fp32, so within one bf16 ulp (rtol 2^-7) of
+# the reference rounded to bf16; both plus 1e-12, far below the
+# background logits' gradients
+LOSS_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-12),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-12)}
+
+
+def _loss_levels_vs_plain(cases, g):
+    """The kernels through ``detection_loss_sums_levels`` and autograd
+    with the cotangent g [L, 2], against the plain version a level at a
+    time: sums within a relative 1e-5 of its fp32 sums, gradients within
+    LOSS_TOL of its autograd in float64, in the heads' dtype and layout.
+    At a logit of exactly 0 autograd of the plain form takes the
+    subgradients of its clamp and abs, where the kernel has the
+    derivative: those dx elements are left out."""
+    leaves = [(x.detach().requires_grad_(True),
+               bx.detach().requires_grad_(True)) for x, bx, *_ in cases]
+    flat = [t for pair in leaves for t in pair]
+    sums = kloss.detection_loss_sums_levels(
+        [x for x, _ in leaves], [bx for _, bx in leaves],
+        *([c[i] for c in cases] for i in (2, 3, 4)), 80)
+    got = torch.autograd.grad((sums * g).sum(), flat)
+    torch.cuda.synchronize()
+    for i, (x, bx, cls, box_t, depth) in enumerate(cases):
+        c_sum, b_sum = kloss.detection_loss_sums_plain(x, bx, cls, box_t,
+                                                       depth, 80)
+        torch.testing.assert_close(sums[i, 0], c_sum, rtol=1e-5, atol=0)
+        torch.testing.assert_close(sums[i, 1], b_sum, rtol=1e-5, atol=1e-6)
+        x64 = x.detach().double().requires_grad_(True)
+        bx64 = bx.detach().double().requires_grad_(True)
+        c64, b64 = kloss.detection_loss_sums_plain(x64, bx64, cls, box_t,
+                                                   depth, 80)
+        g64 = g[i].double()
+        want = torch.autograd.grad(g64[0] * c64 + g64[1] * b64, (x64, bx64))
+        for mine, ref, head, keep in zip(got[2 * i:2 * i + 2], want,
+                                         (x, bx), (x != 0, None)):
+            assert mine.dtype == head.dtype
+            assert mine.stride() == head.stride()
+            if head.dtype == torch.bfloat16:
+                ref = ref.bfloat16()
+            mine, ref = mine.double(), ref.double()
+            if keep is not None:
+                mine, ref = mine[keep], ref[keep]
+            torch.testing.assert_close(mine, ref, **LOSS_TOL[x.dtype])
+    return sums
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('hw', [(13, 21), (100, 144), (1, 1)])
 def test_loss_kernel_equals_plain(cuda_device, dtype, hw):
-    x, bx, cls, box_t, depth = loss_case(h=hw[0], w=hw[1], dtype=dtype,
-                                         device=cuda_device)
-    sums, dx, dbx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t,
-                                                     depth, 80)
-    torch.cuda.synchronize()
-    xr = x.detach().requires_grad_(True)
-    bxr = bx.detach().requires_grad_(True)
-    c_sum, b_sum = kloss.detection_loss_sums_plain(xr, bxr, cls, box_t,
-                                                   depth, 80)
-    want_dx, want_dbx = torch.autograd.grad(c_sum + b_sum, (xr, bxr))
-    torch.testing.assert_close(sums[0], c_sum, rtol=1e-5, atol=0)
-    torch.testing.assert_close(sums[1], b_sum, rtol=1e-5, atol=1e-6)
-    assert dx.stride() == x.stride() and dx.dtype == dtype
-    torch.testing.assert_close(dx, want_dx, **LOSS_TOL[dtype])
-    torch.testing.assert_close(dbx, want_dbx, **LOSS_TOL[dtype])
-    again = kloss.detection_loss_sums_kernel(x, bx, cls, box_t, depth, 80)[0]
-    assert torch.equal(again, sums)            # no atomics: run to run
+    """One level, HW % 8 != 0 (the scalar path) and == 0 (16-byte
+    vectors); the sums the same from run to run (no atomics)."""
+    case = loss_case(h=hw[0], w=hw[1], dtype=dtype, device=cuda_device)
+    g = torch.tensor([[0.37, 1.9]], device=cuda_device)
+    sums = _loss_levels_vs_plain([case], g)
+    again = kloss.detection_loss_sums_levels(*([t] for t in case), 80)
+    assert torch.equal(again, sums)
 
 
 @pytest.mark.cuda
-def test_loss_kernel_backward_scales_unit_gradients(cuda_device):
-    x, bx, cls, box_t, depth = loss_case(dtype=torch.bfloat16,
-                                         device=cuda_device)
-    xr = x.detach().requires_grad_(True)
-    bxr = bx.detach().requires_grad_(True)
-    before = kloss.detection_loss_sums.launches
-    c_sum, b_sum = kloss.detection_loss_sums(xr, bxr, cls, box_t, depth, 80)
-    assert kloss.detection_loss_sums.launches == before + 1
-    dx, dbx = torch.autograd.grad(c_sum / 7 + b_sum * 3, (xr, bxr))
-    _, ux, ubx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t, depth,
-                                                  80)
-    assert torch.equal(dx, (ux.float() / 7).bfloat16())
-    assert torch.equal(dbx, (ubx.float() * 3).bfloat16())
+def test_loss_autograd_runs_both_kernels(cuda_device):
+    """A step's loss launches the forward kernel once and the backward
+    kernel once for all its levels; the gradient autograd hands back is
+    the backward kernel's for the cotangents of the sums."""
+    cases = [loss_case(h=h, w=w, dtype=torch.bfloat16, device=cuda_device,
+                       seed=i) for i, (h, w) in enumerate([(16, 24),
+                                                           (8, 12), (3, 5)])]
+    leaves = [(x.detach().requires_grad_(True),
+               bx.detach().requires_grad_(True)) for x, bx, *_ in cases]
+    fwd = kloss.detection_loss_fwd_kernel.launches
+    bwd = kloss.detection_loss_bwd_kernel.launches
+    sums = kloss.detection_loss_sums_levels(
+        [x for x, _ in leaves], [bx for _, bx in leaves],
+        *([c[i] for c in cases] for i in (2, 3, 4)), 80)
+    got = torch.autograd.grad(sums[:, 0].sum() / 7 + sums[:, 1].sum() * 3,
+                              [t for pair in leaves for t in pair])
+    torch.cuda.synchronize()
+    assert kloss.detection_loss_fwd_kernel.launches == fwd + 1
+    assert kloss.detection_loss_bwd_kernel.launches == bwd + 1
+    ops, geo = kloss.kernel_operands(*zip(*cases), 80)
+    g = torch.tensor([[1 / 7, 3.0]] * len(cases), device=cuda_device)
+    want = kloss.detection_loss_bwd_kernel(ops, geo, g, 80)
+    for i, (dx, dbx) in enumerate(want):
+        assert torch.equal(got[2 * i], dx.permute(0, 2, 3, 1))
+        assert torch.equal(got[2 * i + 1], dbx.permute(0, 2, 3, 1))
 
 
 @pytest.mark.cuda
@@ -331,20 +378,45 @@ def test_loss_kernel_backward_scales_unit_gradients(cuda_device):
 def test_loss_kernel_equals_plain_at_box_dim_6(cuda_device, dtype):
     """The rotated shape: D = 6 box channels (deltas, sin, cos), A = 27
     anchors, 80 classes; the tolerances of the D = 4 test."""
-    x, bx, cls, box_t, depth = loss_case(h=25, w=34, anchors=27, dim=6,
-                                         dtype=dtype, device=cuda_device)
-    sums, dx, dbx = kloss.detection_loss_sums_kernel(x, bx, cls, box_t,
-                                                     depth, 80)
-    torch.cuda.synchronize()
-    xr = x.detach().requires_grad_(True)
-    bxr = bx.detach().requires_grad_(True)
-    c_sum, b_sum = kloss.detection_loss_sums_plain(xr, bxr, cls, box_t,
-                                                   depth, 80)
-    want_dx, want_dbx = torch.autograd.grad(c_sum + b_sum, (xr, bxr))
-    torch.testing.assert_close(sums[0], c_sum, rtol=1e-5, atol=0)
-    torch.testing.assert_close(sums[1], b_sum, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(dx, want_dx, **LOSS_TOL[dtype])
-    torch.testing.assert_close(dbx, want_dbx, **LOSS_TOL[dtype])
+    case = loss_case(h=25, w=34, anchors=27, dim=6, dtype=dtype,
+                     device=cuda_device)
+    _loss_levels_vs_plain([case], torch.tensor([[1.0, 1.0]],
+                                               device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('anchors,dim', [(9, 4), (27, 6)])
+def test_loss_levels_kernel_equals_plain(cuda_device, dtype, anchors, dim):
+    """Five levels of a 256 x 320 canvas in one launch each way: P3-P5
+    on 16-byte vectors, P6 (20 positions) and P7 (6) scalar; each level's
+    sums and gradients against its plain version, under one cotangent
+    per sum."""
+    cases = [loss_case(h=h, w=w, anchors=anchors, dim=dim, dtype=dtype,
+                       device=cuda_device, seed=i)
+             for i, (h, w) in enumerate([(32, 40), (16, 20), (8, 10),
+                                         (4, 5), (2, 3)])]
+    g = torch.from_numpy(np.random.RandomState(1).uniform(
+        0.1, 2.0, (5, 2)).astype(np.float32)).to(cuda_device)
+    _loss_levels_vs_plain(cases, g)
+
+
+@pytest.mark.cuda
+def test_loss_kernel_misaligned_heads_take_the_scalar_path(cuda_device):
+    """Heads whose storage starts off a 16-byte boundary (HW % 8 == 0)
+    are read and written by the scalar steps, with the same results."""
+    x, bx, cls, box_t, depth = loss_case(h=8, w=16, dtype=torch.bfloat16,
+                                         device=cuda_device)
+    nchw = x.permute(0, 3, 1, 2)
+    buf = torch.empty(nchw.numel() + 1, dtype=nchw.dtype, device=cuda_device)
+    shifted = buf[1:].view(nchw.shape).copy_(nchw)
+    assert shifted.data_ptr() % 16 != 0
+    ops, geo = kloss.kernel_operands([shifted.permute(0, 2, 3, 1)], [bx],
+                                     [cls], [box_t], [depth], 80)
+    assert kloss._table(ops, geo)[0][8] == 0      # the level's vec flag
+    case = (shifted.permute(0, 2, 3, 1), bx, cls, box_t, depth)
+    _loss_levels_vs_plain([case], torch.tensor([[1.0, 0.5]],
+                                               device=cuda_device))
 
 
 # -------------------------------------------------- rotated NMS, matcher
@@ -369,13 +441,24 @@ def rotated_nms_case(kind, b=2, n=2000, seed=0):
         boxes[:, 2::7, :2] = boxes[:, 0:-2:7, :2][:, :boxes[:, 2::7].shape[1]]
     elif kind == 'zeros':
         scores[:] = 0.0
+    elif kind == 'one_class':
+        classes[:] = 3.0
+    elif kind == 'nonfinite':
+        # NaN and infinite corners: the clip's NaN rule decides, no skip
+        boxes[:, 0, 0] = np.nan
+        boxes[:, 1, 2] = np.inf
+        boxes[:, 2, 4:] = np.nan
+        scores[:, :3] = [1.0, 0.99, 0.98]
+        classes[:, :4] = 1.0
     return scores, boxes, classes
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('kind,n', [('random', 2000), ('ties', 5000),
                                     ('coincident', 3001), ('zeros', 100),
-                                    ('large', 16384)])
+                                    ('large', 16384), ('one_class', 1000),
+                                    ('nonfinite', 300), ('random', 63),
+                                    ('random', 1)])
 def test_nms_rotated_kernel_equals_plain(cuda_device, kind, n):
     """Every selected score, box and class equal: the kernel's clip is
     the plain version's arithmetic, rounded alike."""
@@ -386,6 +469,21 @@ def test_nms_rotated_kernel_equals_plain(cuda_device, kind, n):
     torch.cuda.synchronize()
     assert knms_rot.nms_rotated.launches == before + 1
     want = knms_rot.nms_rotated_plain(*args, 0.5, 100)
+    for g, w in zip(got, want):     # equal, a NaN box copied as NaN
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('thr,ndet', [(0.0, 100), (-1.0, 50), (0.3, 1000),
+                                      (0.9, 7)])
+def test_nms_rotated_kernel_thresholds_and_depths(cuda_device, thr, ndet):
+    """The AABB skip only where the threshold is >= 0 (a skipped pair
+    reads as IoU 0); D past the live count, and D of a few."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in rotated_nms_case('coincident', n=1500)]
+    got = knms_rot.nms_rotated(*args, thr, ndet)
+    torch.cuda.synchronize()
+    want = knms_rot.nms_rotated_plain(*args, thr, ndet)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

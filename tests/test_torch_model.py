@@ -201,6 +201,14 @@ def test_port_never_imports_jax():
     ('void (anonymous namespace)::nms_kernel<2>(float const*', 'nms kernel'),
     ('(anonymous namespace)::nms_rotated_kernel(float const*, float',
      'rotated nms kernel'),
+    ('(anonymous namespace)::nms_mask_kernel(float const*, float const*',
+     'rotated nms kernel'),
+    ('(anonymous namespace)::nms_scan_kernel(unsigned long long const*',
+     'rotated nms kernel'),
+    ('void (anonymous namespace)::match_kernel<true>(float const*',
+     'rotated matcher kernel'),
+    ('void (anonymous namespace)::det_loss_bwd_kernel<__nv_bfloat16>',
+     'det_loss kernel'),
     ('void DSE::vector_fft<0, 1, 256, 16, 16, 1, float, float, float2>',
      'conv / GEMM math'),
     ('void (anonymous namespace)::stem_pool_kernel<__nv_bfloat16>',
