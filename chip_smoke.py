@@ -39,9 +39,12 @@ give it:
   7. infer: ``odtk-tpu-torch infer`` on the checkpoint the train phase
      wrote (batch 2); NMS and the primal stem launched, detections
      non-empty and finite;
-  8. nms: the NMS kernel vs plain on the real [2, 2000] candidates of the
-     infer run's first batch and on a synthetic [2, 5000] case with
-     planted overlaps, ties and an IoU exactly at the threshold: equal;
+  8. nms: the NMS kernel (rank, suppression bitmask, scan) vs plain on
+     the real [2, 2000] candidates of the infer run's first batch, on a
+     synthetic [2, 5000] case with planted overlaps, ties and an IoU
+     exactly at the threshold, and on those candidates with a NaN score
+     planted in image 0 (which then records nothing): equal; the mask's
+     same-class pairs beside the kept count;
   9. reference: fp32 inference on the card (TF32 off) vs the CPU;
  10. train-reference: one fp32 SGD step of ResNet50FPN on the card (TF32
      off) vs the same step on the CPU, at 2 x 256 x 256;
@@ -61,23 +64,25 @@ give it:
  12. rotated-train: ``odtk-tpu-torch train --rotated-bbox`` for 20 steps
      at batch 8 on rotated JPEGs with up to 24 boxes each, gradients
      clipped to a global norm of 25; the losses
-     finite; per step the matcher launched once per level, the loss's
-     forward and backward kernels (at D = 6) and the stem's argmax
+     finite; per step the matcher launched once for all five levels, the
+     loss's forward and backward kernels (at D = 6) and the stem's argmax
      forward and backward once;
- 13. rotated-match: the matcher kernel vs the plain stream on the real
-     anchors and packed targets of the first rotated step's five levels
-     (equal wherever the plain best IoU is > 0, <= 0 elsewhere, the
-     assignment's depth equal), and its unbatched variant vs plain on
-     one image of P3 (equal);
+ 13. rotated-match: the matcher kernel's one launch for the five levels
+     vs the plain stream on the real anchors and packed targets of the
+     first rotated step (equal wherever the plain best IoU is > 0, <= 0
+     elsewhere, the assignment's depth equal), timed; the pairs it clips
+     beside the pairs whose boxes overlap; and its unbatched variant vs
+     plain on one image of P3 (equal);
  14. rotated-loss: phase 5 at D = 6 on the first rotated step's heads;
  15. rotated-infer: ``odtk-tpu-torch infer`` on the rotated checkpoint
      (batch 2); the rotated NMS launched once per batch, detections
      non-empty, finite, with a ``segmentation`` polygon;
  16. rotated-nms: the rotated NMS kernel (rank, suppression bitmask,
      scan) vs plain on the real [2, 2000] candidates of that run's first
-     batch and on a synthetic [2, 5000] case with tied scores, identical
-     boxes, shared corners and a pair next to the threshold: equal; the
-     greedy rounds' clips beside the pairs the bitmask clips;
+     batch, on a synthetic [2, 5000] case with tied scores, identical
+     boxes, shared corners and a pair next to the threshold, and on the
+     candidates with a NaN score planted in image 0: equal; the greedy
+     rounds' clips beside the pairs the bitmask clips;
  17. rotated-train-reference: one fp32 rotated SGD step on the card vs
      the CPU at 2 x 256 x 256, with the tolerances of phase 10;
  18. rotated-export: phase 11 for the rotated checkpoint, with a 99.9
@@ -314,7 +319,26 @@ def synthetic_nms_case(b=2, n=5000, seed=0):
             torch.from_numpy(classes.astype(np.float32)))
 
 
-def nms_phase(cases):
+def with_nan_score(scores, boxes, classes):
+    """The candidates with a NaN score planted in image 0: the greedy
+    rounds record nothing for that image."""
+    scores = scores.clone()
+    scores[0, scores.shape[1] // 3] = float('nan')
+    return scores, boxes, classes
+
+
+def _same_class_pairs(scores, classes):
+    """The live (score > 0) pairs of one class: the pairs whose IoU the
+    axis NMS mask step computes, summed over the images."""
+    pairs = 0
+    for s, c in zip(scores, classes):
+        if not bool(torch.isnan(s).any()):
+            counts = torch.unique(c[s > 0], return_counts=True)[1]
+            pairs += int((counts * (counts - 1) // 2).sum())
+    return pairs
+
+
+def nms_phase(cases, timed=('decode', 'synthetic')):
     from odtk_tpu_torch.ops.kernels import nms
 
     rows = {}
@@ -325,6 +349,11 @@ def nms_phase(cases):
             raise AssertionError(f'nms kernel != plain on {name}: max abs '
                                  f'diff {_max_abs(got, want)}')
         kept = int((got[0] > 0).sum())
+        pairs = _same_class_pairs(s, c)
+        if name not in timed:
+            print(f'nms {name} {list(s.shape)}: equal, {kept} kept, '
+                  f'{pairs} same-class pairs in the mask', flush=True)
+            continue
         rounds = int((got[0] > 0).sum(1).max())
         bsz, n = s.shape
         rows[name] = dict(
@@ -335,7 +364,8 @@ def nms_phase(cases):
             # (~14 fp32 ops) of the winner against every candidate
             bound=_bound(bsz * n * 24 + bsz * 100 * 24,
                          14 * bsz * rounds * n))
-        print(f'nms {name} {list(s.shape)}: equal, {kept} kept, kernel '
+        print(f'nms {name} {list(s.shape)}: equal, {kept} kept, {pairs} '
+              f'same-class pairs in the mask, kernel '
               f'{rows[name]["ms"]:.4f} ms, plain '
               f'{rows[name]["plain_ms"]:.4f} ms, bound '
               f'{rows[name]["bound"][0]:.6f} ms', flush=True)
@@ -386,20 +416,20 @@ def train_phase(root, img_dir, ann, rotated=False):
             cls_heads, box_heads, cls_ts, box_ts, depths, classes, **kwargs)
 
     def capture_snap(*args):
-        if len(snaps) < 5:
-            snaps.append([a.clone() if torch.is_tensor(a) else a
-                          for a in args])
-        return assign.snap_to_anchors_rotated_batched(*args)
+        if not snaps:      # the first step's targets and levels
+            snaps.extend(a.clone() if torch.is_tensor(a) else a
+                         for a in args)
+        return assign.snap_to_anchors_rotated_levels(*args)
 
     # the names loss_fn calls
     model_mod.detection_loss_sums_levels = capture
-    model_mod.snap_to_anchors_rotated_batched = capture_snap
+    model_mod.snap_to_anchors_rotated_levels = capture_snap
     counted = {'det_loss': loss.detection_loss_fwd_kernel,
                'det_loss_bwd': loss.detection_loss_bwd_kernel,
                'stem_idx': stem.bn_relu_pool_idx,
                'stem_bwd': stem.bn_relu_pool_bwd,
                'stem_primal': stem.bn_relu_pool,
-               'match_rotated': match_rotated.rotated_match,
+               'match_rotated': match_rotated.rotated_match_levels,
                'rotated_best_match': match_rotated.rotated_best_match}
     random.seed(0)                            # the fresh model's init seed
     for k in counted.values():
@@ -416,13 +446,13 @@ def train_phase(root, img_dir, ann, rotated=False):
                if rotated else []))
     finally:
         model_mod.detection_loss_sums_levels = loss.detection_loss_sums_levels
-        model_mod.snap_to_anchors_rotated_batched = \
-            assign.snap_to_anchors_rotated_batched
+        model_mod.snap_to_anchors_rotated_levels = \
+            assign.snap_to_anchors_rotated_levels
     launches = {name: k.launches for name, k in counted.items()}
     expect = {'det_loss': TRAIN_STEPS, 'det_loss_bwd': TRAIN_STEPS,
               'stem_idx': TRAIN_STEPS,
               'stem_bwd': TRAIN_STEPS, 'stem_primal': 0,
-              'match_rotated': 5 * TRAIN_STEPS if rotated else 0,
+              'match_rotated': TRAIN_STEPS if rotated else 0,
               'rotated_best_match': 0}
     if launches != expect:
         raise AssertionError(f'{kind} train launches {launches}, expected '
@@ -754,63 +784,95 @@ def _aabb_pairs(subj, rows, n_act):
     return pairs
 
 
+def _tile_pairs(subj, rows, n_act, tile=256):
+    """The pairs a tile skip clips (the matcher's earlier design): every
+    live anchor of a tile of 256 consecutive anchors against each active
+    target whose AABB meets the tile's AABB, summed over the images."""
+    q = subj.reshape(-1, 4, 2)
+    n = q.shape[0]
+    pad = -n % tile
+    lo = torch.cat([q.amin(1), q.new_full((pad, 2), math.inf)])
+    hi = torch.cat([q.amax(1), q.new_full((pad, 2), -math.inf)])
+    tlo, thi = lo.view(-1, tile, 2).amin(1), hi.view(-1, tile, 2).amax(1)
+    live = torch.full((tlo.shape[0],), tile, device=q.device)
+    live[-1] = tile - pad
+    pairs = 0
+    for b in range(rows.shape[0]):
+        t = rows[b, :int(n_act[b]), :8].reshape(-1, 4, 2)
+        meet = ((t.amin(1)[None] <= thi[:, None])
+                & (t.amax(1)[None] >= tlo[:, None])).all(-1)   # [T, M]
+        pairs += int((meet.sum(1) * live).sum())
+    return pairs
+
+
 def rotated_match_phase(snaps):
-    """The matcher kernel vs the plain stream on the real anchors and
-    packed targets of the first rotated step's five levels: equal IoU and
-    slot wherever the plain best IoU is > 0, <= 0 elsewhere, and the
-    assignment's depth equal. Then the unbatched variant vs plain on the
-    first image of P3: equal everywhere."""
+    """The matcher kernel's one launch for the first rotated step's five
+    levels vs the plain stream on the real anchors and packed targets:
+    equal IoU and slot wherever the plain best IoU is > 0, <= 0 elsewhere,
+    and the assignment's depth equal; timed, with the pairs it clips
+    beside the pairs whose AABBs overlap. Then the unbatched variant vs
+    plain on the first image of P3: equal everywhere."""
     from odtk_tpu_torch.ops import assign, iou_rotated
     from odtk_tpu_torch.ops.kernels import match_rotated as km
 
-    k_ms = p_ms = bound_ms = 0.0
-    pairs_total = 0
-    for targets, size, stride, table, classes, ious in snaps:
-        _, quads, cls, valid, _, boxes_rot = assign.rotated_level(
-            targets.float(), size, stride, table)
-        subj, rows, n_act = iou_rotated.match_inputs(quads, boxes_rot, valid,
-                                                     ious[0])
-        got = km.rotated_match(subj, rows, n_act)
-        want = km.rotated_match_plain(subj, rows, n_act)
-        hit = want[0] > 0
-        if not (torch.equal(got[0][hit], want[0][hit])
-                and torch.equal(got[1][hit], want[1][hit])
-                and bool((got[0][~hit] <= 0).all())):
+    targets, sizes, strides, tables, classes, ious = snaps
+    cls, valid, _, boxes_rot = assign.rotated_targets(targets.float())
+    quads = [assign.rotated_level_anchors(size, stride, table,
+                                          targets.device)[1]
+             for size, stride, table in zip(sizes, strides, tables)]
+    subj, rows, n_act = iou_rotated.match_inputs_levels(quads, boxes_rot,
+                                                        valid, ious[0])
+    args = (subj, rows, n_act)
+    got = km.rotated_match_levels(*args)
+    want = km.rotated_match_levels_plain(*args)
+    nbytes = rows.numel() * 4 + n_act.numel() * 4
+    aabb_total = clipped_total = tile_total = 0
+    for level, stride in enumerate(strides):
+        (g_iou, g_slot), (w_iou, w_slot) = got[level], want[level]
+        hit = w_iou > 0
+        if not (torch.equal(g_iou[hit], w_iou[hit])
+                and torch.equal(g_slot[hit], w_slot[hit])
+                and bool((g_iou[~hit] <= 0).all())):
             raise AssertionError(f'match kernel != plain at stride {stride}')
         depths = [assign._depth_and_class(
             iou, torch.gather(cls, 1, slot.long()), classes, ious)[1]
-            for iou, slot in (got, want)]
+            for iou, slot in (got[level], want[level])]
         if not torch.equal(*depths):
             raise AssertionError(f'assignment depth differs at stride '
                                  f'{stride}')
-        pairs = _aabb_pairs(subj, rows, n_act)
-        pairs_total += pairs
-        k_ms += _median_ms(lambda: km.rotated_match(subj, rows, n_act))
-        p_ms += _median_ms(lambda: km.rotated_match_plain(subj, rows, n_act),
-                           runs=3, warmup=1)
-        b, n = want[0].shape
-        bound_ms += _bound(subj.numel() * 4 + rows.numel() * 4 + b * 4
-                           + b * n * 8, pairs * CLIP_OPS)[0]
-        print(f'rotated-match stride {stride} [{b}, {n}] x {n_act.tolist()} '
-              f'targets: IoU > 0 at {int(hit.sum())} (equal), kernel at -2 '
-              f'{int((got[0] == -2).sum())} vs plain '
-              f'{int((want[0] == -2).sum())}, foreground '
-              f'{int((depths[0] > 0).sum())}, AABB pairs {pairs}',
-              flush=True)
-    print(f'rotated-match: 5 levels, kernel {k_ms:.4f} ms, plain '
-          f'{p_ms:.4f} ms, bound {bound_ms:.4f} ms per step', flush=True)
+        level_args = (subj[level], rows[level], n_act[level])
+        aabb = _aabb_pairs(*level_args)
+        clipped = int(km.clip_mask(*level_args).sum())
+        tiles = _tile_pairs(*level_args)
+        aabb_total += aabb
+        clipped_total += clipped
+        tile_total += tiles
+        b, n = w_iou.shape
+        nbytes += subj[level].numel() * 4 + b * n * 8
+        print(f'rotated-match stride {stride} [{b}, {n}] x '
+              f'{n_act[level].tolist()} targets: IoU > 0 at '
+              f'{int(hit.sum())} (equal), kernel at -2 '
+              f'{int((g_iou == -2).sum())} vs plain '
+              f'{int((w_iou == -2).sum())}, foreground '
+              f'{int((depths[0] > 0).sum())}, pairs clipped {clipped}, '
+              f'AABB pairs {aabb}, tile-skip clips {tiles}', flush=True)
+    k_ms = _median_ms(lambda: km.rotated_match_levels(*args))
+    p_ms = _median_ms(lambda: km.rotated_match_levels_plain(*args), runs=3,
+                      warmup=1)
     match_row = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                     bound=(bound_ms, 'operations'), pairs=pairs_total)
+                     bound=_bound(nbytes, aabb_total * CLIP_OPS),
+                     pairs=aabb_total, clipped=clipped_total)
+    print(f'rotated-match: 5 levels in one launch, kernel {k_ms:.4f} ms, '
+          f'plain {p_ms:.4f} ms, bound {match_row["bound"][0]:.4f} ms per '
+          f'step; pairs clipped {clipped_total}, AABB pairs {aabb_total}, '
+          f'clipped by a tile skip {tile_total}', flush=True)
 
-    targets, size, stride, table, _, _ = snaps[0]
-    _, quads, _, valid, _, boxes_rot = assign.rotated_level(
-        targets.float(), size, stride, table)
-    args = (quads, boxes_rot[0], valid[0])
+    args = (quads[0], boxes_rot[0], valid[0])
     got = km.rotated_best_match(*args)
     want = km.rotated_best_match_plain(*args)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError('rotated_best_match kernel != plain')
-    n, m = quads.shape[0], boxes_rot.shape[1]
+    n, m = quads[0].shape[0], boxes_rot.shape[1]
     best_row = dict(
         max_abs_err=0.0, ms=_median_ms(lambda: km.rotated_best_match(*args)),
         plain_ms=_median_ms(lambda: km.rotated_best_match_plain(*args),
@@ -901,7 +963,7 @@ def _bitmask_pairs(scores, boxes, classes):
     return pairs
 
 
-def rotated_nms_phase(cases):
+def rotated_nms_phase(cases, timed=('decode', 'synthetic')):
     from odtk_tpu_torch.ops.iou_rotated import (quad_iou_one_vs_all,
                                                 sincos_box_corners)
     from odtk_tpu_torch.ops.kernels import nms_rotated as knr
@@ -914,6 +976,10 @@ def rotated_nms_phase(cases):
             raise AssertionError(f'rotated nms kernel != plain on {name}: '
                                  f'max abs diff {_max_abs(got, want)}')
         kept = int((got[0] > 0).sum())
+        if name not in timed:
+            print(f'rotated-nms {name} {list(s.shape)}: equal, {kept} kept',
+                  flush=True)
+            continue
         rounds, clips = _nms_rotated_work(s, b, c, 0.5, 100)
         pairs = _bitmask_pairs(s, b, c)
         bsz, n = s.shape
@@ -1279,7 +1345,8 @@ def main():
                                                     ann)
         nms_rows = nms_phase({'decode': cands,
                               'synthetic': [t.to(device) for t in
-                                            synthetic_nms_case()]})
+                                            synthetic_nms_case()],
+                              'nan': with_nan_score(*cands)})
         reference_phase(ckpt, device)
         train_reference_phase(ckpt, device)
         engine_ms = export_phase(root, ckpt, img_dir, ann, device)
@@ -1297,7 +1364,8 @@ def main():
             rot_root, rot_ckpt, rot_dir, rot_ann, rotated=True)
         rot_nms_rows = rotated_nms_phase(
             {'decode': cands, 'synthetic': [
-                t.to(device) for t in synthetic_rotated_nms_case()]})
+                t.to(device) for t in synthetic_rotated_nms_case()],
+             'nan': with_nan_score(*cands)})
         train_reference_phase(rot_ckpt, device, rotated=True)
         rot_engine_ms = export_phase(rot_root, rot_ckpt, rot_dir, rot_ann,
                                      device, rotated=True)

@@ -10,8 +10,11 @@ loads as a rotated-box model. ``optimizer`` is framework-specific: this
 package writes a ``torch.optim`` state_dict, the JAX package msgpack
 ``bytes`` of its optax state. Neither reads the other's: the port's
 trainer starts the momentum fresh from a JAX-written file (with a
-warning), and the JAX trainer cannot resume from a port-written one.
-Files are read with
+warning); the JAX trainer, asked to resume from a port-written file,
+raises ``TypeError`` (``odtk_tpu/io/checkpoint.py:restore_opt_state``
+takes ``bytes()`` of the torch state_dict), unless it is run with
+``--override``, which starts a fresh model and does not read the file.
+The JAX ``infer`` and ``export`` read the model half. Files are read with
 ``torch.load(weights_only=True)``, which accepts both.
 """
 

@@ -30,7 +30,7 @@ from torch import nn
 from . import backbones as backbones_mod
 from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
                   generate_anchors_rotated, nms, nms_rotated,
-                  snap_to_anchors, snap_to_anchors_rotated_batched)
+                  snap_to_anchors, snap_to_anchors_rotated_levels)
 from .ops.kernels.loss import detection_loss_sums_levels
 
 
@@ -245,28 +245,29 @@ class Model:
         with respect to the parameters (``odtk_tpu/model.py:286-365``).
 
         images [B, H, W, 3] normalized NHWC; targets [B, max_det, 5]
-        (or [B, max_det, 6] rotated) padded with -1. Per FPN level:
-        anchors and assignment (the rotated matcher's kernel for a rotated
-        model); then one loss call over all levels, one forward and one
-        backward kernel launch a step on the card (their plain versions
-        on the CPU). Both sums are divided by the foreground count,
-        max(fg, 1) per level over the whole batch, summed over the
-        levels."""
+        (or [B, max_det, 6] rotated) padded with -1. Anchors and
+        assignment per FPN level; a rotated model assigns all levels at
+        once (``snap_to_anchors_rotated_levels``: one matcher kernel
+        launch a step on the card). Then one loss call over all levels,
+        one forward and one backward kernel launch a step on the card
+        (their plain versions on the CPU). Both sums are divided by the
+        foreground count, max(fg, 1) per level over the whole batch,
+        summed over the levels."""
         cls_heads, box_heads = self.heads(images)
         targets = targets.to(self.device, torch.float32)
-        snap = (snap_to_anchors_rotated_batched if self.rotated_bbox
-                else snap_to_anchors)
-        cls_ts, box_ts, depths = [], [], []
-        for cls_head in cls_heads:
-            h, w = cls_head.shape[1:3]
-            stride = images.shape[2] // w
-            cls_t, box_t, depth = snap(
-                targets, (w * stride, h * stride), stride,
-                self.anchor_tensor(stride, self.device), self.classes,
+        strides = [images.shape[2] // h.shape[2] for h in cls_heads]
+        sizes = [(h.shape[2] * s, h.shape[1] * s)
+                 for h, s in zip(cls_heads, strides)]
+        tables = [self.anchor_tensor(s, self.device) for s in strides]
+        if self.rotated_bbox:
+            cls_ts, box_ts, depths = snap_to_anchors_rotated_levels(
+                targets, sizes, strides, tables, self.classes,
                 self.anchor_ious)
-            cls_ts.append(cls_t)
-            box_ts.append(box_t)
-            depths.append(depth)
+        else:
+            levels = [snap_to_anchors(targets, size, stride, table,
+                                      self.classes, self.anchor_ious)
+                      for size, stride, table in zip(sizes, strides, tables)]
+            cls_ts, box_ts, depths = (list(parts) for parts in zip(*levels))
         sums = detection_loss_sums_levels(cls_heads, box_heads, cls_ts,
                                           box_ts, depths, self.classes)
         fg_total = torch.stack([torch.clamp((d > 0).sum(), min=1)

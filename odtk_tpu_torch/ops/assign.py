@@ -5,6 +5,9 @@ Counterpart of ``odtk_tpu/ops/assign.py``: ``snap_to_anchors`` (with
 and its unbatched reference twin ``snap_to_anchors_rotated``. The JAX
 ``snap_to_anchors`` assigns one image and is vmapped over the batch;
 the batched functions here take the batch dimension directly.
+``snap_to_anchors_rotated_levels`` assigns every FPN level of a rotated
+step with one matcher call, what five calls of the one-level
+``snap_to_anchors_rotated_batched`` give.
 
 Targets are padded ``[B, max_det, 5]`` rows ``(x, y, w, h, class)``, or
 ``[B, max_det, 6]`` rows ``(x, y, w, h, theta, class)`` when rotated;
@@ -24,7 +27,8 @@ memory order of an NHWC [B, H, W, A*K] head:
 import torch
 
 from .boxes import box2delta, box2delta_rotated, rotate_boxes
-from .iou_rotated import rotated_best_match, rotated_best_match_batched
+from .iou_rotated import (rotated_best_match, rotated_best_match_batched,
+                          rotated_best_match_levels)
 
 
 def _axis_iou(anchors, boxes):
@@ -103,24 +107,46 @@ def snap_to_anchors(targets, size, stride, anchor_table, num_classes,
     return cls, deltas, depth
 
 
-def rotated_level(targets, size, stride, anchor_table):
-    """What a rotated assignment of one level works on: (anchors_axis
-    [N, 4], anchor quads [N, 8], classes, valid, axis-aligned + (sin,
-    cos) boxes [..., M, 6], corner quads [..., M, 8]) of padded rotated
-    targets [..., M, 6] (fp32); w and h are clamped so padded (-1-filled)
-    rows stay finite."""
-    table_axis, table_rot = anchor_table
-    width = int(size[0]) // int(stride)
-    height = int(size[1]) // int(stride)
-    device = targets.device
+def rotated_targets(targets):
+    """(classes, valid, axis-aligned + (sin, cos) boxes [..., M, 6],
+    corner quads [..., M, 8]) of padded rotated targets [..., M, 6]
+    (fp32); w and h are clamped so padded (-1-filled) rows stay finite."""
     classes = targets[..., 5]
     safe = torch.cat([targets[..., 0:2],
                       torch.clamp(targets[..., 2:4], min=1e-4),
                       targets[..., 4:5]], dim=-1)
     boxes_axis, boxes_rot = rotate_boxes(safe)
-    return (level_anchors(width, height, stride, table_axis, device),
-            level_anchors(width, height, stride, table_rot, device),
-            classes, classes > -1, boxes_axis, boxes_rot)
+    return classes, classes > -1, boxes_axis, boxes_rot
+
+
+def rotated_level_anchors(size, stride, anchor_table, device):
+    """(anchors_axis [N, 4], anchor quads [N, 8]) of one level of
+    (width, height) ``size`` in pixels, from the (axis, corners) table."""
+    width = int(size[0]) // int(stride)
+    height = int(size[1]) // int(stride)
+    return tuple(level_anchors(width, height, stride, table, device)
+                 for table in anchor_table)
+
+
+def rotated_level(targets, size, stride, anchor_table):
+    """What a rotated assignment of one level works on: (anchors_axis
+    [N, 4], anchor quads [N, 8], then ``rotated_targets``' four) of
+    padded rotated targets [..., M, 6] (fp32)."""
+    return (*rotated_level_anchors(size, stride, anchor_table,
+                                   targets.device),
+            *rotated_targets(targets))
+
+
+def _rotated_assignment(best_iou, best_slot, classes, boxes_axis,
+                        anchors_axis, num_classes, anchor_ious):
+    """(cls, deltas, depth) of one level from its best matches."""
+    best_cls = torch.gather(classes, 1, best_slot)
+    best_box = torch.gather(boxes_axis, 1,
+                            best_slot[..., None].expand(-1, -1, 6))
+    deltas = box2delta_rotated(best_box, anchors_axis[None])
+    cls, depth = _depth_and_class(best_iou, best_cls, num_classes,
+                                  anchor_ious)
+    return cls, deltas, depth
 
 
 def snap_to_anchors_rotated_batched(targets, size, stride, anchor_table,
@@ -133,7 +159,7 @@ def snap_to_anchors_rotated_batched(targets, size, stride, anchor_table,
     padding and out-of-band targets skipped, its kernel on CUDA).
     Returns (cls [B, N] int32, deltas [B, N, 6], depth [B, N]).
 
-    On the card the matcher's tile skip leaves other anchors at (-2,
+    On the card the matcher's AABB skip leaves other anchors at (-2,
     slot 0) than the plain version does, all of them below ``lo`` in
     both; ``depth`` is the same, and cls and deltas wherever depth > 0
     (``ops/kernels/match_rotated.py``)."""
@@ -141,13 +167,29 @@ def snap_to_anchors_rotated_batched(targets, size, stride, anchor_table,
         rotated_level(targets.float(), size, stride, anchor_table)
     best_iou, best_slot = rotated_best_match_batched(
         anchors_rot, boxes_rot, valid, skip_ratio=anchor_ious[0])
-    best_cls = torch.gather(classes, 1, best_slot)
-    best_box = torch.gather(boxes_axis, 1,
-                            best_slot[..., None].expand(-1, -1, 6))
-    deltas = box2delta_rotated(best_box, anchors_axis[None])
-    cls, depth = _depth_and_class(best_iou, best_cls, num_classes,
-                                  anchor_ious)
-    return cls, deltas, depth
+    return _rotated_assignment(best_iou, best_slot, classes, boxes_axis,
+                               anchors_axis, num_classes, anchor_ious)
+
+
+def snap_to_anchors_rotated_levels(targets, sizes, strides, anchor_tables,
+                                   num_classes, anchor_ious=(0.4, 0.5)):
+    """``snap_to_anchors_rotated_batched`` of every FPN level at once:
+    padded rotated targets [B, max_det, 6]; per level its (width, height)
+    in pixels, stride and (axis, corners) anchor table. The targets are
+    rotated and packed once and every level is matched by one matcher
+    call (``rotated_best_match_levels``: one kernel launch on CUDA).
+    Returns (cls_ts, box_ts, depths): lists a level of [B, N_l] int32,
+    [B, N_l, 6] and [B, N_l], equal to the one-level function's."""
+    targets = targets.float()
+    classes, valid, boxes_axis, boxes_rot = rotated_targets(targets)
+    anchors = [rotated_level_anchors(size, stride, table, targets.device)
+               for size, stride, table in zip(sizes, strides, anchor_tables)]
+    best = rotated_best_match_levels([rot for _, rot in anchors], boxes_rot,
+                                     valid, skip_ratio=anchor_ious[0])
+    levels = [_rotated_assignment(iou, slot, classes, boxes_axis, axis,
+                                  num_classes, anchor_ious)
+              for (iou, slot), (axis, _) in zip(best, anchors)]
+    return tuple(list(parts) for parts in zip(*levels))
 
 
 def snap_to_anchors_rotated(targets, size, stride, anchor_table, num_classes,

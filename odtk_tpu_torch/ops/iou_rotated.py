@@ -186,19 +186,49 @@ def rotated_best_match_batched(subject_quads, clip_quads, valid,
     return best_iou, best_slot.long()
 
 
+def rotated_best_match_levels(level_quads, clip_quads, valid,
+                              skip_ratio=None):
+    """``rotated_best_match_batched`` for every FPN level at once: a list
+    of L subject quad tensors [N_l, 8] against each image's targets [B,
+    M, 8] -> a list of L (best_iou [B, N_l], best_slot [B, N_l] int64).
+    Only the size band differs by level. One matcher call (one kernel
+    launch on CUDA) for all levels."""
+    from .kernels.match_rotated import rotated_match_levels
+
+    return [(iou, slot.long()) for iou, slot in rotated_match_levels(
+        *match_inputs_levels(level_quads, clip_quads, valid, skip_ratio))]
+
+
 def match_inputs(subject_quads, clip_quads, valid, skip_ratio=None):
     """The batched matcher's inputs: (subject quads [N, 8], packed rows
     [B, M, 9], n_act [B]), padding and out-of-band targets left out."""
-    subj = subject_quads.reshape(-1, 8).float()
+    (subj,), rows, n_act = match_inputs_levels([subject_quads], clip_quads,
+                                               valid, skip_ratio)
+    return subj, rows[0], n_act[0]
+
+
+def match_inputs_levels(level_quads, clip_quads, valid, skip_ratio=None):
+    """The levels matcher's inputs: (a list of subject quads [N_l, 8],
+    packed rows [L, B, M, 9], n_act [L, B]); a level leaves out the
+    padding and the targets outside its size band, all levels packed in
+    one pass."""
+    subj = [q.reshape(-1, 8).float() for q in level_quads]
     clips = clip_quads.float()
-    active = valid.bool()
+    active = valid.bool()[None].expand(len(subj), *valid.shape)
     if skip_ratio is not None:
-        areas = quad_areas(subj)
-        amin, amax = areas.min(), areas.max()
         clip_areas = quad_areas(clips)
-        active = active & ((clip_areas >= skip_ratio * amin)
-                           & (clip_areas * skip_ratio <= amax))
-    return (subj, *pack_active(clips, active))
+        bands = []
+        for s in subj:
+            areas = quad_areas(s)
+            amin, amax = areas.min(), areas.max()
+            bands.append((clip_areas >= skip_ratio * amin)
+                         & (clip_areas * skip_ratio <= amax))
+        active = active & torch.stack(bands)
+    levels, b, m = active.shape
+    rows, n_act = pack_active(
+        clips[None].expand(levels, -1, -1, -1).reshape(levels * b, m, 8),
+        active.reshape(levels * b, m))
+    return subj, rows.view(levels, b, m, 9), n_act.view(levels, b)
 
 
 def rotated_best_match(subject_quads, clip_quads, valid):

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    'odtk_nms': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    'odtk_nms': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     'odtk_stem_pool': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'odtk_stem_pool_idx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
@@ -47,7 +47,7 @@ _SIGNATURES = {
     'odtk_det_loss_bwd': [_P, _I, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                           _P],
     'odtk_nms_rotated': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
-    'odtk_match_rotated': [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    'odtk_match_rotated': [_P, _I, _I, _P, _P, _I, _I, _P],
     'odtk_rotated_best_match': [_P, _P, _I, _I, _P, _P, _P],
     'odtk_focal_sum': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _L,
                        _L, _F, _F, _P],

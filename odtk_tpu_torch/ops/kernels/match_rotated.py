@@ -1,44 +1,52 @@
-"""Rotated anchor matching: the CUDA kernel (csrc/match_rotated.cu) and
-its plain PyTorch versions, for two entry points.
+"""Rotated anchor matching: the CUDA kernels (csrc/match_rotated.cu) and
+their plain PyTorch versions, for two entry points.
 
-- ``rotated_match`` replaces the TPU kernel
+- ``rotated_match_levels`` replaces the TPU kernel
   ``odtk_tpu/ops/pallas/match_rotated_kernel.py:rotated_match_pallas``,
-  the batched matcher of every rotated training step: anchors [N, 8]
-  shared across the batch, per image the packed rows [B, M, 9] (quad and
-  original slot, the first n_act[b] active, in ascending slot order), ->
-  (best_iou [B, N], best_slot [B, N] int32), a strict ``>`` fold from
-  (-2, slot 0). The plain version is the JAX package's stream (the jnp
-  form of ``rotated_best_match_batched``), with no tile skip.
+  the batched matcher of every rotated training step, for all FPN levels
+  of the step in one launch: per level its anchors [N_l, 8], shared
+  across the batch; per level and image the packed rows [L, B, M, 9]
+  (quad and original slot, the first n_act[l, b] active, in ascending
+  slot order) -> per level (best_iou [B, N_l], best_slot [B, N_l] int32),
+  a strict ``>`` fold from (-2, slot 0). The plain version is the JAX
+  package's stream (the jnp form of ``rotated_best_match_batched``) a
+  level, with no skip. ``rotated_match`` is its one-level form.
 - ``rotated_best_match`` replaces
   ``odtk_tpu/ops/pallas/iou_kernel.py:rotated_best_match_pallas`` with
   the semantics of the jnp ``rotated_best_match`` it stands for: one
   image, every target visited, an invalid one counting as IoU -1,
-  (best_iou [N], best_idx [N] int32). The same kernel with its skip,
-  band and packing turned off.
+  (best_iou [N], best_idx [N] int32), no skip.
 
-What the kernel and its plain version share, and where they differ.
-Both clip by ``_soa_clip_iou``'s arithmetic and fold in the same order,
-so each IoU they compute is the same bit for bit. The kernel skips a
-target for a tile of 256 anchors whose AABB misses the target's (its IoU
-against every anchor of the tile is 0), so the anchors that no target
-reached, and keep (-2, slot 0), are not the plain version's, nor the TPU
-kernel's (its tiles are 16 x 128). Wherever the plain best IoU is > 0
-the kernel's equals it, IoU and slot; everywhere else both are <= 0,
-below the background threshold ``lo``. So the assignment's ``depth`` is
-equal everywhere, and its class and deltas wherever ``depth > 0``: what
-the loss reads. ``tests/test_torch_kernels.py`` and ``chip_smoke.py``
-hold the kernel to exactly that.
+What the batched kernel and its plain version share, and where they
+differ. Both clip by ``_soa_clip_iou``'s arithmetic, so each IoU they
+compute is the same bit for bit. The kernel clips only the (anchor,
+target) pairs whose axis-aligned boxes, widened by ``SKIP_MARGIN``, meet
+or that hold a non-finite corner (``clip_mask``); a skipped pair's IoU
+is 0 (or NaN), never > 0. It folds each anchor's IoUs >= 0 by (IoU
+descending, packed row ascending), the strict ``>`` fold's order, and an
+anchor that no clipped pair reached keeps (-2, slot 0). So wherever the
+plain best IoU is > 0 the kernel's equals it, IoU and slot; everywhere
+else both are <= 0, below the background threshold ``lo``. So the
+assignment's ``depth`` is equal everywhere, and its class and deltas
+wherever ``depth > 0``: what the loss reads. ``tests/test_torch_kernels.py``
+and ``chip_smoke.py`` hold the kernel to exactly that, and
+``tests/test_torch_match_levels.py`` replays its skip and fold on the CPU.
 
 The wrappers take the plain version for tensors on the CPU and the
 kernel for CUDA tensors; there is no fallback between them.
 """
+
+import ctypes
 
 import torch
 
 from ..iou_rotated import _corner_lists, clip_iou
 from . import _build
 
-MAX_ROWS = 6400            # 36 bytes each of shared memory per block
+MAX_ROWS = 6400            # rotated_best_match: 36 bytes a row of smem
+TILE = 256                 # kThreads of csrc/match_rotated.cu: anchors a tile
+MAX_LEVELS = 8             # kMaxLevels
+SKIP_MARGIN = 0.25         # kSkipMargin: the widening of the AABB skip
 
 
 def rotated_match_plain(anchors, rows, n_act):
@@ -56,6 +64,48 @@ def rotated_match_plain(anchors, rows, n_act):
         best_iou = torch.where(upd, iou, best_iou)
         best_slot = torch.where(upd, row[:, 8:9].to(torch.int32), best_slot)
     return best_iou, best_slot
+
+
+def rotated_match_levels_plain(anchors, rows, n_act):
+    """``rotated_match_plain`` a level: anchors a list of [N_l, 8], rows
+    [L, B, M, 9], n_act [L, B]."""
+    return [rotated_match_plain(a, rows[level], n_act[level])
+            for level, a in enumerate(anchors)]
+
+
+def _boxes(quads):
+    """Axis-aligned boxes (lo [..., 2], hi [..., 2]) of quads [..., 8],
+    widened by SKIP_MARGIN, and whether all corners are finite."""
+    pts = quads.reshape(*quads.shape[:-1], 4, 2)
+    return (pts.amin(-2) - SKIP_MARGIN, pts.amax(-2) + SKIP_MARGIN,
+            torch.isfinite(quads).all(-1))
+
+
+def clip_mask(anchors, rows, n_act):
+    """[B, N, M] bool: the (image, anchor, packed row) pairs the batched
+    kernel clips. A pair of an active row is clipped unless both quads
+    are finite and their boxes, each widened by SKIP_MARGIN, are
+    disjoint (csrc/match_rotated.cu, csrc/nms_rotated.cu)."""
+    lo, hi, fin = _boxes(anchors.float())                  # [N, 2], [N]
+    tlo, thi, tfin = _boxes(rows[..., :8].float())         # [B, M, 2]
+    apart = ((lo[None, :, None] > thi[:, None])
+             | (tlo[:, None] > hi[None, :, None])).any(-1)  # [B, N, M]
+    skip = fin[None, :, None] & tfin[:, None] & apart
+    m = rows.shape[1]
+    active = (torch.arange(m, device=rows.device)[None]
+              < n_act.to(rows.device)[:, None])           # [B, M]
+    return ~skip & active[:, None]
+
+
+def level_tiles(ns):
+    """The kernel's split of the levels' anchors into tiles of ``TILE``,
+    in level order (a block a tile and image). Returns (each level's first
+    tile, the tiles of all levels); a level of no anchors has no tile."""
+    tile0, tiles = [], 0
+    for n in ns:
+        tile0.append(tiles)
+        tiles += -(-int(n) // TILE)
+    return tile0, tiles
 
 
 def rotated_best_match_plain(anchors, clips, valid):
@@ -81,35 +131,60 @@ def _check_anchors(anchors, name):
     return anchors.float().contiguous()
 
 
-def rotated_match(anchors, rows, n_act):
-    """Batched best match: the plain version on the CPU, the kernel on
-    CUDA. anchors [N, 8], rows [B, M, 9], n_act [B] ->
-    (best_iou [B, N] fp32, best_slot [B, N] int32)."""
-    if anchors.device.type == 'cpu':
-        return rotated_match_plain(anchors.float(), rows.float(), n_act)
-    anchors = _check_anchors(anchors, 'rotated_match')
-    b, m = rows.shape[:2]
-    if (rows.dim() != 3 or rows.shape[2] != 9 or n_act.shape != (b,)
-            or rows.device != anchors.device
-            or n_act.device != anchors.device or m > MAX_ROWS):
-        raise ValueError(f'rotated_match: rows {tuple(rows.shape)} and n_act '
+def rotated_match_levels(anchors, rows, n_act):
+    """Batched best match of every level in one launch: the plain
+    version on the CPU, the kernel on CUDA. anchors: a list of L [N_l, 8]
+    tensors; rows [L, B, M, 9]; n_act [L, B] -> a list of L (best_iou
+    [B, N_l] fp32, best_slot [B, N_l] int32)."""
+    if anchors[0].device.type == 'cpu':
+        return rotated_match_levels_plain(
+            [a.float() for a in anchors], rows.float(), n_act)
+    anchors = [_check_anchors(a, 'rotated_match_levels') for a in anchors]
+    levels = len(anchors)
+    device = anchors[0].device
+    if (not 0 < levels <= MAX_LEVELS or rows.dim() != 4
+            or rows.shape[0] != levels or rows.shape[3] != 9
+            or n_act.shape != rows.shape[:2] or rows.device != device
+            or n_act.device != device
+            or any(a.device != device for a in anchors)):
+        raise ValueError(f'rotated_match_levels: {levels} levels (1 to '
+                         f'{MAX_LEVELS}), rows {tuple(rows.shape)} and n_act '
                          f'{tuple(n_act.shape)} on {rows.device}, '
-                         f'{n_act.device} (at most {MAX_ROWS} rows)')
+                         f'{n_act.device}')
+    b, m = rows.shape[1:3]
     rows = rows.float().contiguous()
     n_act = n_act.to(torch.int32).contiguous()
-    n = anchors.shape[0]
-    best_iou = anchors.new_empty(b, n)
-    best_slot = torch.empty((b, n), dtype=torch.int32, device=anchors.device)
-    if b == 0 or n == 0:
-        return best_iou, best_slot
-    with torch.cuda.device(anchors.device):
+    ns = [a.shape[0] for a in anchors]
+    best_iou = anchors[0].new_empty(b * sum(ns))
+    best_slot = torch.empty(b * sum(ns), dtype=torch.int32, device=device)
+    out = [(i.view(b, n), s.view(b, n)) for i, s, n in zip(
+        best_iou.split([b * n for n in ns]),
+        best_slot.split([b * n for n in ns]), ns)]
+    tile0, tiles = level_tiles(ns)
+    fields = []
+    for a, (iou, slot), n, first in zip(anchors, out, ns, tile0):
+        fields += [a.data_ptr(), iou.data_ptr(), slot.data_ptr(), n, first]
+    table = (ctypes.c_longlong * len(fields))(*fields)
+    with torch.cuda.device(device):
         rc = _build.library().odtk_match_rotated(
-            anchors.data_ptr(), rows.data_ptr(), n_act.data_ptr(), b, n, m,
-            best_iou.data_ptr(), best_slot.data_ptr(),
-            _build.stream_handle(anchors.device))
+            table, levels, tiles, rows.data_ptr(), n_act.data_ptr(), b, m,
+            _build.stream_handle(device))
     _build.check(rc, 'odtk_match_rotated')
-    rotated_match.launches += 1
-    return best_iou, best_slot
+    rotated_match_levels.launches += 1
+    return out
+
+
+def rotated_match(anchors, rows, n_act):
+    """Batched best match of one level: ``rotated_match_levels`` of one
+    (the plain version on the CPU, one launch on CUDA). anchors [N, 8],
+    rows [B, M, 9], n_act [B] -> (best_iou [B, N] fp32, best_slot [B, N]
+    int32)."""
+    if anchors.device.type == 'cpu':
+        return rotated_match_plain(anchors.float(), rows.float(), n_act)
+    if rows.dim() != 3 or n_act.dim() != 1:
+        raise ValueError(f'rotated_match: rows {tuple(rows.shape)} and n_act '
+                         f'{tuple(n_act.shape)}')
+    return rotated_match_levels([anchors], rows[None], n_act[None])[0]
 
 
 def rotated_best_match(anchors, clips, valid):
@@ -141,5 +216,5 @@ def rotated_best_match(anchors, clips, valid):
     return best_iou, best_idx
 
 
-rotated_match.launches = 0
+rotated_match_levels.launches = 0
 rotated_best_match.launches = 0

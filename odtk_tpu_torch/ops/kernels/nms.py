@@ -3,18 +3,22 @@ PyTorch version.
 
 Replaces the TPU kernel ``odtk_tpu/ops/pallas/nms_kernel.py:nms_pallas``.
 On the card the cost is D dependent selection rounds, not bytes; the
-kernel keeps all candidates of an image in the registers of one
-1024-thread block and runs every round there (see the note in
-csrc/nms.cu). ``nms`` calls the ``odtk::nms`` operator, whose CPU
-implementation is the plain version and whose CUDA one the kernel, so an
-exported graph keeps the kernel; there is no fallback between them.
+kernel takes them out of a block-wide chain: two launches rank the live
+candidates by counting, a mask launch over 64 x 64 tiles of ranks sets
+the suppression bit of every same-class pair whose IoU exceeds the
+threshold, and a one-warp scan per image stops at D kept (see the notes
+in csrc/nms.cu and csrc/nms_scan.cuh, shared with the rotated NMS). An
+image holding a NaN score records nothing, as the greedy rounds do.
+``nms`` calls the ``odtk::nms`` operator, whose CPU implementation is
+the plain version and whose CUDA one the kernel, so an exported graph
+keeps the kernel; there is no fallback between them.
 """
 
 import torch
 
 from . import _build
 
-MAX_CANDIDATES = 8192      # 1024 threads x 8 register slots (csrc/nms.cu)
+MAX_CANDIDATES = 16384     # the scan's bitset of ranks (nms_scan.cuh)
 
 
 def nms_plain(scores, boxes, classes, nms_thresh=0.5, ndetections=100):
@@ -87,6 +91,16 @@ def _nms_op(scores: torch.Tensor, boxes: torch.Tensor, classes: torch.Tensor,
     return nms_plain(scores, boxes, classes, nms_thresh, ndetections)
 
 
+def scan_scratch(scores, n, ndetections):
+    """The one scratch allocation of the bitmask NMS kernels (layout in
+    csrc/nms_scan.cuh): per image the [N, ceil(N/64)] 64-bit mask, then
+    int32 ranks, live count, NaN flag, order and kept ranks."""
+    b = scores.shape[0]
+    words = -(-n // 64)
+    return scores.new_empty(b * (n * words * 2 + 2 * n + 2 + ndetections),
+                            dtype=torch.int32)
+
+
 @_nms_op.register_kernel('cuda')
 def _nms_cuda(scores, boxes, classes, nms_thresh, ndetections):
     b, n = scores.shape
@@ -100,11 +114,13 @@ def _nms_cuda(scores, boxes, classes, nms_thresh, ndetections):
         return out_s, out_b, out_c
     if n == 0:
         return out_s.zero_(), out_b.zero_(), out_c.zero_()
+    scratch = scan_scratch(scores, n, ndetections)
     with torch.cuda.device(scores.device):
         rc = _build.library().odtk_nms(
             scores.data_ptr(), boxes.data_ptr(), classes.data_ptr(), b, n,
-            ndetections, nms_thresh, out_s.data_ptr(), out_b.data_ptr(),
-            out_c.data_ptr(), _build.stream_handle(scores.device))
+            ndetections, nms_thresh, scratch.data_ptr(), out_s.data_ptr(),
+            out_b.data_ptr(), out_c.data_ptr(),
+            _build.stream_handle(scores.device))
     _build.check(rc, 'odtk_nms')
     nms.launches += 1
     return out_s, out_b, out_c

@@ -9,7 +9,9 @@ and its device twin ``csrc/quad_iou.cuh``). On the card the rounds are
 a scan in score order over a pairwise suppression bitmask: two launches
 that rank the live candidates by counting, a mask launch over 64 x 64
 tiles of ranks that holds the clips, and a one-warp scan per image that
-stops at D kept (see the note in csrc/nms_rotated.cu).
+stops at D kept (see the notes in csrc/nms_rotated.cu and
+csrc/nms_scan.cuh, whose rank and scan the axis-aligned NMS shares). An
+image holding a NaN score records nothing, as the greedy rounds do.
 ``nms_rotated`` calls the ``odtk::nms_rotated`` operator, whose CPU
 implementation is the plain version and whose CUDA one the kernel, so an
 exported graph keeps the kernel; there is no fallback between them.
@@ -19,8 +21,9 @@ import torch
 
 from ..iou_rotated import _corner_lists, clip_iou, sincos_box_corners
 from . import _build
+from .nms import scan_scratch
 
-MAX_CANDIDATES = 16384     # the scan's bitset of ranks (nms_rotated.cu)
+MAX_CANDIDATES = 16384     # the scan's bitset of ranks (nms_scan.cuh)
 SKIP_MARGIN = 0.25         # kSkipMargin: the widening of the AABB skip
 
 
@@ -31,7 +34,9 @@ def nms_rotated_plain(scores, boxes, classes, nms_thresh=0.5,
     The rounds of ``odtk_tpu/ops/nms.py:_nms_single`` with
     ``_rotated_iou_one_vs_all``, batched: argmax (first index on ties),
     record when the maximum is > 0, then zero the winner and every
-    same-class candidate whose IoU against it exceeds nms_thresh.
+    same-class candidate whose IoU against it exceeds nms_thresh. A NaN
+    score is the argmax of every round and is not > 0, so its image
+    records nothing.
     scores/classes [B, N], boxes [B, N, 6] -> ([B, D], [B, D, 6], [B, D]).
     """
     s = scores.float().clone()
@@ -107,11 +112,7 @@ def _nms_rotated_cuda(scores, boxes, classes, nms_thresh, ndetections):
         return out_s, out_b, out_c
     if n == 0:
         return out_s.zero_(), out_b.zero_(), out_c.zero_()
-    words = -(-n // 64)
-    # the mask, then int32 ranks, live counts, order and kept ranks
-    # (nms_rotated.cu)
-    scratch = scores.new_empty(b * (n * words * 2 + 2 * n + 1 + ndetections),
-                               dtype=torch.int32)
+    scratch = scan_scratch(scores, n, ndetections)
     with torch.cuda.device(scores.device):
         rc = _build.library().odtk_nms_rotated(
             scores.data_ptr(), boxes.data_ptr(), classes.data_ptr(), b, n,

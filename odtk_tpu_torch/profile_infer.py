@@ -13,7 +13,8 @@ threshold 0.001, on 32 synthetic 480x640 JPEGs resized to 800x1067 (an
    backbone, heads, decode, NMS): the median ms per step between CUDA
    events, the median host time to enqueue one step, and, from a
    ``torch.profiler`` trace of 10 steps, the device time per
-   step by kernel family;
+   step by kernel family and by kernel of the package's own CUDA
+   kernels;
 3. ``infer``: the ``infer`` loop over the images, unprofiled: its median
    ms per batch after the first (the loop's own batch intervals), and
    the device's idle share there, estimated as 1 - (device ms per step
@@ -43,10 +44,13 @@ STEPS = 10
 # rest is 'elementwise' (batch-norm affine, ReLU, residual adds, bias,
 # copies, cat, reductions); the training families serve profile_train
 FAMILIES = [
-    ('nms kernel', ('nms_kernel',)),
+    # the bitmask NMS kernels share their rank and scan, templates on the
+    # box width: <4> axis-aligned, <6> rotated (csrc/nms_scan.cuh)
+    ('nms kernel', ('nms_kernel', 'nms_axis_mask', 'nms_count_kernel<4>',
+                    'nms_order_kernel<4>', 'nms_scan_kernel<4>')),
     ('rotated nms kernel', ('nms_rotated_kernel', 'nms_count', 'nms_order',
                             'nms_mask', 'nms_scan')),
-    ('rotated matcher kernel', ('match_kernel',)),
+    ('rotated matcher kernel', ('match_kernel', 'match_levels_kernel')),
     ('stem backward kernel', ('stem_pool_bwd',)),
     ('stem kernel', ('stem_pool',)),
     ('det_loss kernel', ('det_loss',)),
@@ -71,6 +75,28 @@ def family(name):
 def device_events(prof):
     from torch.autograd import DeviceType
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _short(name):
+    """A kernel's name without its namespace, return type and arguments."""
+    name = name.replace('(anonymous namespace)::', '').split('(')[0]
+    return name.rsplit('::', 1)[-1].removeprefix('void ')
+
+
+def device_breakdown(prof, steps):
+    """Device time per step (ms) of a profile: (by kernel family, by
+    kernel of this package's own CUDA kernels, the families whose name
+    ends in 'kernel'), each in decreasing order."""
+    by_family, by_kernel = {}, {}
+    for e in device_events(prof):
+        fam = family(e.name)
+        us = e.time_range.elapsed_us()
+        by_family[fam] = by_family.get(fam, 0.0) + us
+        if fam.endswith('kernel'):
+            by_kernel[_short(e.name)] = by_kernel.get(_short(e.name), 0.0) + us
+    return tuple({k: v / 1e3 / steps for k, v in
+                  sorted(d.items(), key=lambda kv: -kv[1])}
+                 for d in (by_family, by_kernel))
 
 
 def write_images(root, n, seed=0):
@@ -125,18 +151,13 @@ def device_phase(model, batch, steps, device):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    by_family = {}
-    for e in device_events(prof):
-        fam = family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(by_family.values()) / 1e3 / steps
+    by_family, by_kernel = device_breakdown(prof, steps)
     return {
         'step_ms_median': statistics.median(step_ms),
         'enqueue_ms_median': statistics.median(enqueue_ms),
-        'device_ms_per_step': busy_ms,
-        'by_family_ms_per_step': {
-            k: v / 1e3 / steps for k, v in
-            sorted(by_family.items(), key=lambda kv: -kv[1])},
+        'device_ms_per_step': sum(by_family.values()),
+        'by_family_ms_per_step': by_family,
+        'by_kernel_ms_per_step': by_kernel,
     }
 
 
@@ -184,6 +205,8 @@ def main(argv=None):
     for k, v in dp['by_family_ms_per_step'].items():
         print(f'  {k:24s} {v:8.3f} ms/step '
               f'{100 * v / dp["device_ms_per_step"]:5.1f}%')
+    for k, v in dp['by_kernel_ms_per_step'].items():
+        print(f'    {k:32s} {v:8.4f} ms/step')
     print(f'infer loop: {out["infer"]["ms_per_batch_median"]:.3f} ms/batch, '
           f'device idle share (est.) '
           f'{100 * out["infer"]["device_idle_share_est"]:.1f}%')

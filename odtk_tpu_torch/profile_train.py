@@ -18,7 +18,8 @@ measures, in this order:
    forward, assignment, loss, backward, gradient norm, SGD): the median
    ms per step between CUDA events, the median host time to enqueue one
    step, and, from a ``torch.profiler`` trace of 5 steps, the device
-   time per step by kernel family (``profile_infer.FAMILIES``);
+   time per step by kernel family (``profile_infer.FAMILIES``) and by
+   kernel of the package's own CUDA kernels;
 3. ``train``: the ``train`` loop, unprofiled, for 24 steps: its median
    ms per step after the first 4 (the loop's own step intervals), and
    the device's idle share there, estimated as 1 - (device ms per step
@@ -39,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from .profile_infer import device_events, family, write_images
+from .profile_infer import device_breakdown, write_images
 
 IMAGES = 32
 BATCH = 8
@@ -128,17 +129,13 @@ def device_phase(model, batch, device, clip_grads):
         for _ in range(STEPS):
             run()
         torch.cuda.synchronize()
-    by_family = {}
-    for e in device_events(prof):
-        fam = family(e.name)
-        by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us()
+    by_family, by_kernel = device_breakdown(prof, STEPS)
     return {
         'step_ms_median': statistics.median(step_ms),
         'enqueue_ms_median': statistics.median(enqueue_ms),
-        'device_ms_per_step': sum(by_family.values()) / 1e3 / STEPS,
-        'by_family_ms_per_step': {
-            k: v / 1e3 / STEPS for k, v in
-            sorted(by_family.items(), key=lambda kv: -kv[1])},
+        'device_ms_per_step': sum(by_family.values()),
+        'by_family_ms_per_step': by_family,
+        'by_kernel_ms_per_step': by_kernel,
     }
 
 
@@ -199,6 +196,8 @@ def main(argv=None):
     for k, v in dp['by_family_ms_per_step'].items():
         print(f'  {k:24s} {v:8.3f} ms/step '
               f'{100 * v / dp["device_ms_per_step"]:5.1f}%')
+    for k, v in dp['by_kernel_ms_per_step'].items():
+        print(f'    {k:32s} {v:8.4f} ms/step')
     print(f'train loop: {out["train"]["ms_per_step_median"]:.3f} ms/step, '
           f'device idle share (est.) '
           f'{100 * out["train"]["device_idle_share_est"]:.1f}%')

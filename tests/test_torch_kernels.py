@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from odtk_tpu_torch.ops import (generate_anchors_rotated, rotate_boxes,
-                                snap_to_anchors_rotated_batched)
+                                snap_to_anchors_rotated_batched,
+                                snap_to_anchors_rotated_levels)
 from odtk_tpu_torch.ops.assign import level_anchors
 from odtk_tpu_torch.ops.iou_rotated import (pack_active, quad_areas,
                                             sincos_box_corners)
@@ -53,6 +54,9 @@ def nms_case(kind, b=2, n=300, seed=0):
         scores[:] = 0.0
     elif kind == 'few_live':
         scores[:, 10:] = 0.0
+    elif kind == 'nan_scores':
+        scores[0, 17] = np.nan      # image 0 records nothing
+        scores[1, 3] = -np.inf      # a dead candidate, not a NaN
     return scores, boxes, classes
 
 
@@ -82,13 +86,33 @@ def test_stem_kernel_bit_equal_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('kind,n', [('random', 2000), ('ties', 5000),
                                     ('iou_at_threshold', 4099),
-                                    ('zeros', 1000), ('few_live', 8192)])
+                                    ('zeros', 1000), ('few_live', 8192),
+                                    ('random', 8192), ('nan_scores', 2000),
+                                    ('random', 1), ('random', 65)])
 def test_nms_kernel_equals_plain(cuda_device, kind, n):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in nms_case(kind, n=n)]
+    before = knms.nms.launches
     got = knms.nms(*args, 0.5, 100)
     torch.cuda.synchronize()
+    assert knms.nms.launches == before + 1
     want = knms.nms_plain(*args, 0.5, 100)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if kind == 'nan_scores':
+        assert not got[0][0].any() and got[0][1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('thr,ndet', [(0.0, 100), (-1.0, 50), (0.3, 1000),
+                                      (0.9, 7)])
+def test_nms_kernel_thresholds_and_depths(cuda_device, thr, ndet):
+    """Thresholds at and below 0 (every same-class pair suppresses), D past
+    the live count, and D of a few."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in nms_case('ties', n=1500)]
+    got = knms.nms(*args, thr, ndet)
+    torch.cuda.synchronize()
+    want = knms.nms_plain(*args, thr, ndet)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -119,7 +143,7 @@ def test_build_compiles_every_source_for_sm90a():
     assert names == ['det_loss.cu', 'focal_sum.cu', 'match_rotated.cu',
                      'nms.cu', 'nms_rotated.cu', 'stem_pool.cu']
     assert [p.rsplit('/', 1)[-1] for p in _build.headers()] == [
-        'focal.cuh', 'quad_iou.cuh']
+        'focal.cuh', 'nms_scan.cuh', 'quad_iou.cuh']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert not any('fast_math' in f for f in _build.NVCC_FLAGS)
     assert _build.library_path().startswith(_build.BUILD_DIR)
@@ -450,6 +474,9 @@ def rotated_nms_case(kind, b=2, n=2000, seed=0):
         boxes[:, 2, 4:] = np.nan
         scores[:, :3] = [1.0, 0.99, 0.98]
         classes[:, :4] = 1.0
+    elif kind == 'nan_scores':
+        scores[0, 17] = np.nan      # image 0 records nothing
+        scores[1, 3] = -np.inf      # a dead candidate, not a NaN
     return scores, boxes, classes
 
 
@@ -458,7 +485,7 @@ def rotated_nms_case(kind, b=2, n=2000, seed=0):
                                     ('coincident', 3001), ('zeros', 100),
                                     ('large', 16384), ('one_class', 1000),
                                     ('nonfinite', 300), ('random', 63),
-                                    ('random', 1)])
+                                    ('random', 1), ('nan_scores', 2000)])
 def test_nms_rotated_kernel_equals_plain(cuda_device, kind, n):
     """Every selected score, box and class equal: the kernel's clip is
     the plain version's arithmetic, rounded alike."""
@@ -528,7 +555,7 @@ def test_match_rotated_kernel_holds_the_plain_contract(cuda_device):
     assert torch.equal(got_slot[hit], want_slot[hit])
     assert (got_iou[~hit] <= 0).all()
     assert (got_iou[1] == -2).all() and (got_slot[1] == 0).all()
-    assert (got_iou == -2).sum() > (want_iou == -2).sum()   # the tile skip
+    assert (got_iou == -2).sum() > (want_iou == -2).sum()   # the AABB skip
 
 
 @pytest.mark.cuda
@@ -538,11 +565,11 @@ def test_rotated_assignment_through_the_kernel_equals_plain(cuda_device,
     same assignment through the plain matcher: depth equal everywhere;
     cls and deltas equal on the foreground."""
     _, t, table = match_case(device=cuda_device)
-    before = kmatch.rotated_match.launches
+    before = kmatch.rotated_match_levels.launches
     cls, deltas, depth = snap_to_anchors_rotated_batched(t, (320, 256), 8,
                                                          table, 80)
     torch.cuda.synchronize()
-    assert kmatch.rotated_match.launches == before + 1
+    assert kmatch.rotated_match_levels.launches == before + 1
     monkeypatch.setattr(kmatch, 'rotated_match', kmatch.rotated_match_plain)
     w_cls, w_deltas, w_depth = snap_to_anchors_rotated_batched(
         t, (320, 256), 8, table, 80)
@@ -551,6 +578,56 @@ def test_rotated_assignment_through_the_kernel_equals_plain(cuda_device,
     assert fg.sum() > 50
     assert torch.equal(cls[fg], w_cls[fg])
     assert torch.equal(deltas[fg], w_deltas[fg])
+
+
+@pytest.mark.cuda
+def test_match_levels_kernel_holds_the_plain_contract(cuda_device,
+                                                      monkeypatch):
+    """Five ragged levels (no level a multiple of 256 anchors) in one
+    launch, an image without active targets, a target touching the anchor
+    box that ends P3's first tile: each level under the contract, and the
+    levels assignment's depth equal to the plain matcher's everywhere."""
+    from odtk_tpu_torch.ops.assign import rotated_targets
+    from odtk_tpu_torch.ops.iou_rotated import match_inputs_levels
+
+    size, strides = (336, 272), [8, 16, 32, 64, 128]
+    sizes = [(size[0] // s * s, size[1] // s * s) for s in strides]
+    tables = [generate_anchors_rotated(s, [1.0, 2.0, 0.5],
+                                       [4 * 2 ** (i / 3) for i in range(3)],
+                                       [-np.pi / 6, 0, np.pi / 6])
+              for s in strides]
+    anchors = [level_anchors(w // s, h // s, s, tb[1], cuda_device)
+               for (w, h), s, tb in zip(sizes, strides, tables)]
+    assert all(a.shape[0] % 256 for a in anchors)
+    _, t, _ = match_case(device=cuda_device)
+    edge = anchors[0].reshape(-1, 4, 2)[255, :, 0].max()
+    t[2, 0, :5] = torch.stack([edge, *t.new_tensor([20.0, 30.0, 25.0, 0.0])])
+    _, valid, _, quads = rotated_targets(t)
+    subj, rows, n_act = match_inputs_levels(anchors, quads, valid, 0.4)
+    assert (n_act[:, 1] == 0).all() and n_act[0, 2] > 0
+    before = kmatch.rotated_match_levels.launches
+    got = kmatch.rotated_match_levels(subj, rows, n_act)
+    torch.cuda.synchronize()
+    assert kmatch.rotated_match_levels.launches == before + 1
+    want = kmatch.rotated_match_levels_plain(subj, rows, n_act)
+    for (g_iou, g_slot), (w_iou, w_slot) in zip(got, want):
+        hit = w_iou > 0
+        assert torch.equal(g_iou[hit], w_iou[hit])
+        assert torch.equal(g_slot[hit], w_slot[hit])
+        assert (g_iou[~hit] <= 0).all() and (g_iou[1] == -2).all()
+    assert (want[0][0] > 0).sum() > 1000
+
+    got = snap_to_anchors_rotated_levels(t, sizes, strides, tables, 80)
+    torch.cuda.synchronize()
+    assert kmatch.rotated_match_levels.launches == before + 2
+    monkeypatch.setattr(kmatch, 'rotated_match_levels',
+                        kmatch.rotated_match_levels_plain)
+    want = snap_to_anchors_rotated_levels(t, sizes, strides, tables, 80)
+    for cls, deltas, depth, w_cls, w_deltas, w_depth in zip(*got, *want):
+        assert torch.equal(depth, w_depth)
+        fg = w_depth > 0
+        assert torch.equal(cls[fg], w_cls[fg])
+        assert torch.equal(deltas[fg], w_deltas[fg])
 
 
 @pytest.mark.cuda

@@ -207,6 +207,22 @@ def test_port_never_imports_jax():
      'rotated nms kernel'),
     ('void (anonymous namespace)::match_kernel<true>(float const*',
      'rotated matcher kernel'),
+    ('void (anonymous namespace)::nms_axis_mask_kernel(float const*, float',
+     'nms kernel'),
+    ('void (anonymous namespace)::nms_count_kernel<4>(float const*, int',
+     'nms kernel'),
+    ('void (anonymous namespace)::nms_order_kernel<4>(float const*, int',
+     'nms kernel'),
+    ('void (anonymous namespace)::nms_scan_kernel<4>(float const*, float',
+     'nms kernel'),
+    ('void (anonymous namespace)::nms_count_kernel<6>(float const*, int',
+     'rotated nms kernel'),
+    ('void (anonymous namespace)::nms_scan_kernel<6>(float const*, float',
+     'rotated nms kernel'),
+    ('(anonymous namespace)::match_levels_kernel((anonymous namespace)::Ta',
+     'rotated matcher kernel'),
+    ('(anonymous namespace)::best_match_kernel(float const*, float const*',
+     'rotated matcher kernel'),
     ('void (anonymous namespace)::det_loss_bwd_kernel<__nv_bfloat16>',
      'det_loss kernel'),
     ('void DSE::vector_fft<0, 1, 256, 16, 16, 1, float, float, float2>',
@@ -227,3 +243,18 @@ def test_port_never_imports_jax():
 def test_profile_kernel_family(name, fam):
     from odtk_tpu_torch.profile_infer import family
     assert family(name) == fam
+
+
+@pytest.mark.parametrize('name, short', [
+    ('void (anonymous namespace)::nms_scan_kernel<4>(float const*, float',
+     'nms_scan_kernel<4>'),
+    ('(anonymous namespace)::match_levels_kernel((anonymous namespace)::Ta',
+     'match_levels_kernel'),
+    ('void odtk::stem_pool_kernel<__nv_bfloat16>(__nv_bfloat16 const*',
+     'stem_pool_kernel<__nv_bfloat16>'),
+])
+def test_profile_kernel_short_name(name, short):
+    """The per-kernel rows of the profiles name a kernel without its
+    namespace, return type and arguments."""
+    from odtk_tpu_torch.profile_infer import _short
+    assert _short(name) == short

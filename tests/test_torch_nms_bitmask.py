@@ -3,11 +3,13 @@ plain torch here, against the greedy rounds it replaces.
 
 The kernel ranks the live candidates by counting (score descending, index
 ascending), builds a pairwise suppression bitmask over 64-rank words with
-an axis-aligned skip rule, and scans it one word-skipping step per kept
-detection. ``bitmask_nms`` below repeats those three steps on the CPU; the
-tests hold it equal to ``nms_rotated_plain`` (the greedy rounds) and to the
-JAX package's ``odtk_tpu/ops/nms.py:nms_rotated``, and check that the skip
-rule never skips a pair that overlaps.
+an axis-aligned skip rule, and scans it a 64-rank chunk at a time; an
+image holding a NaN score ranks no candidate (the greedy
+rounds record nothing for it). ``bitmask_nms`` below repeats those three
+steps on the CPU; the tests hold it equal to ``nms_rotated_plain`` (the
+greedy rounds) and to the JAX package's
+``odtk_tpu/ops/nms.py:nms_rotated``, and check that the skip rule never
+skips a pair that overlaps.
 """
 
 import functools
@@ -27,7 +29,6 @@ from odtk_tpu_torch.ops.kernels.nms_rotated import nms_rotated_plain
 SKIP_MARGIN = 0.25          # kSkipMargin of csrc/nms_rotated.cu
 WORD = 64                   # ranks per mask word
 FULL = (1 << WORD) - 1
-WARP = 32                   # words one ballot looks at
 NDET = 100
 
 _jax_nms = jax.jit(functools.partial(jax_nms_rotated, nms_thresh=0.5,
@@ -36,7 +37,10 @@ _jax_nms = jax.jit(functools.partial(jax_nms_rotated, nms_thresh=0.5,
 
 def _rank_order(s):
     """The live candidates (score > 0) in the scan order, by counting: a
-    candidate's rank is the number of live ones that precede it."""
+    candidate's rank is the number of live ones that precede it. None
+    where any score is NaN (the rank step's per-image flag)."""
+    if torch.isnan(s).any():
+        return torch.zeros(0, dtype=torch.long)
     idx = torch.arange(s.shape[0])
     live = s > 0
     precedes = ((s[None, :] > s[:, None])
@@ -77,41 +81,28 @@ def _mask_words(q, cls, thr):
     return rows
 
 
-def _next_open(removed, pos, n):
-    """The first rank >= pos not in ``removed``, or n: a ballot over 32
-    words at a time, the first open word, its first open bit."""
-    words = len(removed)
-    for base in range(pos // WORD, words, WARP):
-        lanes = []
-        for w in range(base, base + WARP):
-            bits = 0
-            if w < words:
-                bits = ~removed[w] & FULL
-                if w == pos // WORD:
-                    bits &= (FULL << (pos % WORD)) & FULL
-                if w == words - 1 and n % WORD:
-                    bits &= (1 << (n % WORD)) - 1
-            lanes.append(bits)
-        hit = [i for i, bits in enumerate(lanes) if bits]
-        if hit:
-            bits = lanes[hit[0]]
-            return (base + hit[0]) * WORD + (bits & -bits).bit_length() - 1
-    return n
-
-
 def _scan(rows, n, ndet):
-    """The kept ranks: jump to the first unremoved rank, keep it, OR its
-    row into ``removed``."""
-    removed = [0] * (-(-n // WORD))
-    kept, nxt = [], 0
-    while len(kept) < ndet:
-        p = _next_open(removed, nxt, n)
-        if p >= n:
+    """The kept ranks, a 64-rank chunk (one mask word) at a time: within
+    chunk c keep the first open rank and OR its diagonal word (row r, word
+    c) into the chunk's removed word, until none is open; then OR the
+    later words of the rows kept in chunk c into ``removed``."""
+    words = -(-n // WORD)
+    removed = [0] * words
+    kept = []
+    for c in range(words):
+        if len(kept) >= ndet:
             break
-        kept.append(p)
-        for w in range(p // WORD, len(removed)):
-            removed[w] |= rows[p][w]
-        nxt = p + 1
+        in_chunk = min(WORD, n - c * WORD)
+        rem = removed[c] | ((FULL << in_chunk) & FULL)
+        keep = []
+        while rem != FULL and len(kept) < ndet:
+            r = (~rem & -~rem).bit_length() - 1
+            keep.append(c * WORD + r)
+            kept.append(c * WORD + r)
+            rem |= (1 << r) | rows[c * WORD + r][c]
+        for w in range(c + 1, words):
+            for p in keep:
+                removed[w] |= rows[p][w]
     return kept
 
 
@@ -188,6 +179,9 @@ def nms_case(kind, b=2, n=300, seed=0):
         boxes[:, 2, 4:] = np.nan
         scores[:, :3] = [1.0, 0.99, 0.98]
         classes[:, :4] = 1
+    elif kind == 'nan_scores':
+        scores[0, 7] = np.nan             # image 0 records nothing
+        scores[1, 3] = -np.inf            # a dead candidate, not a NaN
     return (scores.astype(np.float32), boxes.astype(np.float32),
             classes.astype(np.float32))
 
@@ -195,7 +189,7 @@ def nms_case(kind, b=2, n=300, seed=0):
 CASES = [('ties', 300), ('copies', 300), ('shared_corners', 300),
          ('pad_pair', 300), ('zeros', 300), ('fewer_than_ndet', 40),
          ('one_class', 300), ('many_classes', 300), ('nonfinite', 300),
-         ('synthetic', 300)]
+         ('nan_scores', 300), ('synthetic', 300)]
 
 
 @pytest.mark.parametrize('kind,n', CASES)
@@ -215,6 +209,8 @@ def test_bitmask_nms_equals_greedy_and_jax(kind, n):
     kept = (got[0] > 0).sum(1)
     if kind == 'zeros':
         assert (kept == 0).all()
+    elif kind == 'nan_scores':
+        assert not any(t[0].any() for t in got) and (kept[1] > 0)
     else:
         assert (kept > 0).all() and (got[0][:, :-1] >= got[0][:, 1:]).all()
     if kind == 'fewer_than_ndet':
@@ -274,14 +270,16 @@ def test_nonfinite_quads_are_always_clipped():
 
 
 def test_scan_jumps_over_removed_words():
-    """Ranks spread over several 32-word ballots: a chain where each kept
-    rank removes everything up to the next ballot's range is scanned to
-    the same kept list as a rank-by-rank walk."""
-    n = 64 * 70                                   # 70 words, 3 ballots
+    """Ranks spread over 70 words: a chain where each kept rank removes
+    everything up to far chunks, and a chunk whose rows keep several ranks,
+    scanned to the same kept list as a rank-by-rank walk."""
+    n = 64 * 70                                   # 70 words
     rows = [[0] * 70 for _ in range(n)]
     for p in (0, 2100, 4000):                     # remove up to the next
         for j in range(p + 1, min(p + 2100, n)):
             rows[p][j // WORD] |= 1 << (j % WORD)
+    for p in range(4200, 4260, 3):                # every other one removed
+        rows[p][(p + 1) // WORD] |= 1 << ((p + 1) % WORD)
     kept = _scan(rows, n, NDET)
     walk, removed = [], set()
     for p in range(n):
