@@ -15,11 +15,14 @@ give it:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
-     [2, 64, 448, 576] (the inference batch), bf16 and fp32, bit-equal;
+     [2, 64, 448, 576] (the inference batch) and [2, 64, 448, 704] (the
+     engines' batch), bf16 and fp32, bit-equal, also with NaN planted
+     (and +-inf where the scale is 0): NaNs in the same places;
   3. stem-train: at [8, 64, 448, 576] (the train batch), bf16 and fp32,
      the forward with argmax bit-equal to the primal kernel and to plain,
      its idx equal to max_pool2d's indices mapped to codes, and the
-     routing backward equal to the plain version's autograd;
+     routing backward equal to the plain version's autograd; the same on
+     the NaN-planted case (code 9 wherever the output is NaN);
   4. train: ``odtk-tpu-torch train`` for 20 steps at batch 8 (lr 0.001,
      warmup 10), from a seeded random init; the losses finite, each
      training kernel launched the expected number of times (the loss's
@@ -113,6 +116,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUNS = 20
 STEM_SHAPE = (2, 64, 448, 576)      # conv1 output of a 896x1152 canvas, b=2
+ENGINE_STEM_SHAPE = (2, 64, 448, 704)   # the engines' 896x1408, b=2
 TRAIN_STEM_SHAPE = (8, 64, 448, 576)
 TRAIN_BATCH, TRAIN_STEPS, WARMUP = 8, 20, 10
 ROTATED_MAX_BOXES = 24              # dense targets for the matcher
@@ -213,29 +217,64 @@ def _stem_bytes(shape, itemsize):
         (wc - 1) // 2 + 1)
 
 
+def _with_nan(y, scale, shift, seed):
+    """Copies of a stem case with NaN planted in y (1%, a corner
+    included) and +-inf in the last channel, whose scale is set to 0
+    (inf * 0 = NaN)."""
+    g = torch.Generator().manual_seed(seed)
+    y, scale = y.clone(), scale.clone()
+    nan = torch.rand(y.shape, generator=g) < 0.01
+    inf = torch.rand(y[:, -1].shape, generator=g) < 0.05
+    y[nan.to(y.device)] = torch.nan
+    y[0, 0, 0, 0] = torch.nan
+    y[:, -1][inf.to(y.device)] = torch.inf
+    y[:, -1, :3, :3] = -torch.inf
+    scale[-1] = 0.0
+    return y, scale, shift
+
+
+def _equal_nan(a, b):
+    """Equal values (torch.equal's rule) with NaNs in the same places."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
 def stem_phase(device):
+    """Row 2 at the checkpoint path's and the engines' conv1 shapes, bf16
+    and fp32: bit-equal to plain, NaNs in the same places on the
+    NaN-planted case, timed. Returns {(dtype, shape): row}."""
     from odtk_tpu_torch.ops.kernels import stem
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        y, scale, shift = _stem_inputs(STEM_SHAPE, dtype, device, 1)
-        got = stem.bn_relu_pool(y, scale, shift)
-        want = stem.bn_relu_pool_plain(y, scale, shift)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f'stem kernel != plain in {dtype}: max abs diff '
-                f'{_max_abs([got], [want])}')
-        conv, pooled = _stem_bytes(STEM_SHAPE, y.element_size())
-        rows[dtype] = dict(
-            max_abs_err=_max_abs([got], [want]),
-            ms=_median_ms(lambda: stem.bn_relu_pool(y, scale, shift)),
-            plain_ms=_median_ms(
-                lambda: stem.bn_relu_pool_plain(y, scale, shift)),
-            bound=_bound(conv + pooled * y.element_size(), 36 * pooled))
-        print(f'stem {str(dtype)[6:]} {list(STEM_SHAPE)}: bit-equal, '
-              f'kernel {rows[dtype]["ms"]:.4f} ms, plain '
-              f'{rows[dtype]["plain_ms"]:.4f} ms, bound '
-              f'{rows[dtype]["bound"][0]:.4f} ms', flush=True)
+        for shape in (STEM_SHAPE, ENGINE_STEM_SHAPE):
+            y, scale, shift = _stem_inputs(shape, dtype, device, 1)
+            got = stem.bn_relu_pool(y, scale, shift)
+            want = stem.bn_relu_pool_plain(y, scale, shift)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f'stem kernel != plain in {dtype} at {list(shape)}: max '
+                    f'abs diff {_max_abs([got], [want])}')
+            nan_case = _with_nan(y, scale, shift, 7)
+            got_nan = stem.bn_relu_pool(*nan_case)
+            want_nan = stem.bn_relu_pool_plain(*nan_case)
+            if not (want_nan.isnan().any() and _equal_nan(got_nan, want_nan)):
+                raise AssertionError(
+                    f'stem kernel != plain on the NaN case in {dtype} at '
+                    f'{list(shape)}: {int(got_nan.isnan().sum())} NaN '
+                    f'outputs, plain {int(want_nan.isnan().sum())}')
+            del nan_case, got_nan, want_nan
+            conv, pooled = _stem_bytes(shape, y.element_size())
+            row = rows[dtype, shape] = dict(
+                max_abs_err=_max_abs([got], [want]),
+                ms=_median_ms(lambda: stem.bn_relu_pool(y, scale, shift)),
+                plain_ms=_median_ms(
+                    lambda: stem.bn_relu_pool_plain(y, scale, shift)),
+                bound=_bound(conv + pooled * y.element_size(), 36 * pooled))
+            print(f'stem {str(dtype)[6:]} {list(shape)}: bit-equal (NaN '
+                  f'case too), kernel {row["ms"]:.4f} ms, plain '
+                  f'{row["plain_ms"]:.4f} ms, bound {row["bound"][0]:.4f} '
+                  'ms', flush=True)
     return rows
 
 
@@ -260,6 +299,7 @@ def stem_train_phase(device):
                 f'{int((idx != want_idx).sum())} differ')
         if not (idx == stem.SENTINEL).any():
             raise AssertionError('no sentinel window was exercised')
+        stem_nan_check(y, scale, shift, dtype)
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
         g = g.to(device, dtype)
         dy = stem.bn_relu_pool_bwd(idx, g, scale, TRAIN_STEM_SHAPE[2:])
@@ -293,6 +333,40 @@ def stem_train_phase(device):
                   f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, '
                   f'bound {row["bound"][0]:.4f} ms', flush=True)
     return fwd, bwd
+
+
+def stem_nan_check(y, scale, shift, dtype):
+    """Rows 3 and 4 on the NaN-planted copy of a train-shape case: the
+    forward with argmax equal to plain and to the primal kernel, NaNs in
+    the same places, the codes equal to plain (9 wherever the output is
+    NaN), the routing backward equal to the plain version's autograd."""
+    from odtk_tpu_torch.ops.kernels import stem
+
+    y, scale, shift = _with_nan(y, scale, shift, 8)
+    out, idx = stem.bn_relu_pool_idx(y, scale, shift)
+    want_out, want_idx = stem.bn_relu_pool_idx_plain(y, scale, shift)
+    nan = want_out.isnan()
+    if not (nan.any() and _equal_nan(out, want_out)
+            and _equal_nan(stem.bn_relu_pool(y, scale, shift), want_out)):
+        raise AssertionError(f'stem argmax forward != primal/plain on the '
+                             f'NaN case in {dtype}')
+    if not (torch.equal(idx, want_idx)
+            and bool((idx[nan] == stem.SENTINEL).all())):
+        raise AssertionError(f'stem idx != plain codes on the NaN case in '
+                             f'{dtype}: {int((idx != want_idx).sum())} differ')
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    g = g.to(y.device, y.dtype)
+    yr = y.clone().requires_grad_(True)
+    dy, = torch.autograd.grad(stem.bn_relu_pool_train(yr, scale, shift),
+                              yr, g)
+    want_dy, = torch.autograd.grad(stem.bn_relu_pool_plain(yr, scale, shift),
+                                   yr, g)
+    if not torch.equal(dy, want_dy):
+        raise AssertionError(f'stem backward != plain autograd on the NaN '
+                             f'case in {dtype}')
+    print(f'stem-train NaN case {str(dtype)[6:]}: {int(nan.sum())} NaN '
+          'windows, code 9 there, forward, codes and backward equal to '
+          'plain', flush=True)
 
 
 def synthetic_nms_case(b=2, n=5000, seed=0):
@@ -1112,7 +1186,8 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
     their plain versions on the inputs the bf16 and fp32 engines give
     them; each int8 engine near the bf16 one on every batch
     (``int8_check``); each int8 package under the fp32 one / 2.5.
-    Returns {engine: ms per batch}."""
+    Returns ({engine: ms per batch}, the stem kernel's launches over the
+    engines' infer runs)."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch.data import DataIterator, RotatedDataIterator
     from odtk_tpu_torch.export import Engine
@@ -1137,6 +1212,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
                                           '--dynamic-batch-opts', '2', '2',
                                           '2']
     paths, sizes, ms = {}, {}, {}
+    stem_launches = 0
     for name, flags in flavours.items():
         path = os.path.join(root, f'{kind}_{name}.engine')
         table = os.path.join(root, f'{kind}_{name}.calib.json')
@@ -1161,6 +1237,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
                                  f'other nms) {launches} over {batches} '
                                  'batches: the engine did not run the '
                                  'kernels')
+        stem_launches += launches[1]
         with open(det) as f:
             dets = json.load(f)['annotations']
         if not dets:
@@ -1228,7 +1305,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
           f'int8 engines vs bf16 (top-{INT8_TOP_K} scores max err, the '
           f'int8 top-1 class\'s gap to the bf16 top score) {int8_err}; '
           f'package bytes {sizes}', flush=True)
-    return ms
+    return ms, stem_launches
 
 
 class _OperatorInputs(TorchDispatchMode):
@@ -1304,12 +1381,18 @@ def int8_check(label, got, ref):
     return err, gap
 
 
+def _times(row):
+    return dict(ms=row['ms'], plain_ms=row['plain_ms'],
+                bound_ms=row['bound'][0])
+
+
 def _row(name, source, replaces, launches, row):
     bound_ms, bound_by = row['bound']
     out = dict(name=name, route='cuda', source=source, replaces=replaces,
                launches=launches, max_abs_err=row['max_abs_err'],
                ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
+    out.update({k: row[k] for k in ('engine_shape', 'fp32') if k in row})
     if 'ms_fwd_bwd' in row:     # row 5: the forward alone, and with its
         out.update(              # backward kernel as autograd runs them
             launches_bwd=row['launches_bwd'], ms_fwd_bwd=row['ms_fwd_bwd'],
@@ -1349,7 +1432,8 @@ def main():
                               'nan': with_nan_score(*cands)})
         reference_phase(ckpt, device)
         train_reference_phase(ckpt, device)
-        engine_ms = export_phase(root, ckpt, img_dir, ann, device)
+        engine_ms, engine_stem = export_phase(root, ckpt, img_dir, ann,
+                                              device)
 
         rot_root = os.path.join(root, 'rotated')
         rot_dir, rot_ann = make_data(rot_root, n_images=32, rotated=True,
@@ -1367,8 +1451,8 @@ def main():
                 t.to(device) for t in synthetic_rotated_nms_case()],
              'nan': with_nan_score(*cands)})
         train_reference_phase(rot_ckpt, device, rotated=True)
-        rot_engine_ms = export_phase(rot_root, rot_ckpt, rot_dir, rot_ann,
-                                     device, rotated=True)
+        rot_engine_ms, rot_engine_stem = export_phase(
+            rot_root, rot_ckpt, rot_dir, rot_ann, device, rotated=True)
 
     csrc = 'odtk_tpu_torch/csrc/'
     pallas = 'odtk_tpu/ops/pallas/'
@@ -1377,15 +1461,23 @@ def main():
         _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
              infer_launches['nms'], nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
-             pallas + 'stem_kernel.py:99', infer_launches['stem'],
-             dict(stem_rows[bf16], max_abs_err=max(
-                 r['max_abs_err'] for r in stem_rows.values()))),
+             pallas + 'stem_kernel.py:99',
+             infer_launches['stem'] + rot_infer_launches['stem']
+             + engine_stem + rot_engine_stem,
+             dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
+                 r['max_abs_err'] for r in stem_rows.values()),
+                  engine_shape=dict(
+                      shape=list(ENGINE_STEM_SHAPE),
+                      **_times(stem_rows[bf16, ENGINE_STEM_SHAPE])),
+                  fp32=_times(stem_rows[torch.float32, STEM_SHAPE]))),
         _row('bn_relu_pool_idx', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:117',
-             train_launches['stem_idx'], fwd_rows[bf16]),
+             train_launches['stem_idx'] + rot_launches['stem_idx'],
+             dict(fwd_rows[bf16], fp32=_times(fwd_rows[torch.float32]))),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:157',
-             train_launches['stem_bwd'], dict(bwd_rows[bf16], max_abs_err=max(
+             train_launches['stem_bwd'] + rot_launches['stem_bwd'],
+             dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
              pallas + 'focal_kernel.py:186', train_launches['det_loss'],

@@ -12,6 +12,10 @@ forward goes through the ``odtk::bn_relu_pool`` operator (CPU: plain,
 CUDA: kernel), so an exported graph keeps the kernel. The BN
 scale and shift are frozen (no gradient), as the JAX package's
 ``frozen`` collection is.
+
+NaN: a window that holds a NaN post-ReLU value pools to NaN, its code is
+``SENTINEL``, and it routes no gradient, in the kernels, in the plain
+versions and in the JAX package's ``fused_bn_relu_pool`` alike.
 """
 
 import torch
@@ -26,21 +30,31 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SENTINEL = 9
 
 
+def _bn_relu(y, scale, shift):
+    """relu(y * scale + shift) in fp32, NaN carried. Under autograd a NaN
+    element passes no gradient back, as the kernels' and the JAX
+    package's routing by the code ``SENTINEL`` do: ReLU's own backward
+    would let the cotangent through where its result is NaN."""
+    z = torch.relu(y.float() * scale.float()[:, None, None]
+                   + shift.float()[:, None, None])
+    if z.requires_grad:
+        z = torch.where(z.isnan(), z.detach(), z)
+    return z
+
+
 def bn_relu_pool_plain(y, scale, shift):
     """Plain PyTorch version, for CPU tensors and the tests only:
     max_pool2d(relu(y * scale + shift), 3, 2, 1) with the affine in fp32.
     y [B, C, H, W]; scale, shift [C] fp32. Differentiable in y; its
     autograd is the plain version of the backward kernel."""
-    z = torch.relu(y.float() * scale.float()[:, None, None]
-                   + shift.float()[:, None, None])
-    return F.max_pool2d(z, 3, 2, 1).to(y.dtype)
+    return F.max_pool2d(_bn_relu(y, scale, shift), 3, 2, 1).to(y.dtype)
 
 
 def bn_relu_pool_idx_plain(y, scale, shift):
     """Plain version of the argmax forward: (out, idx int8 codes), from
-    max_pool2d's own indices, which keep the window's first maximum."""
-    z = torch.relu(y.float() * scale.float()[:, None, None]
-                   + shift.float()[:, None, None])
+    max_pool2d's own indices, which keep the window's first maximum; the
+    code is ``SENTINEL`` where the max is not > 0 (0 or NaN)."""
+    z = _bn_relu(y, scale, shift)
     out, flat = F.max_pool2d(z, 3, 2, 1, return_indices=True)
     hp, wp = out.shape[-2:]
     wc = y.shape[-1]
@@ -116,7 +130,7 @@ def _bn_relu_pool_fake(y, scale, shift):
 def bn_relu_pool_idx(y, scale, shift):
     """The forward of the stem under autodiff: (out, idx), out as
     ``bn_relu_pool`` and idx int8 [B, C, Hp, Wp], each window's first
-    maximum as a code 0..8, or 9 where its post-ReLU max is 0."""
+    maximum as a code 0..8, or 9 where its post-ReLU max is 0 or NaN."""
     if y.device.type == 'cpu':
         return bn_relu_pool_idx_plain(y, scale, shift)
     scale, shift = _check('bn_relu_pool_idx', y, scale, shift)

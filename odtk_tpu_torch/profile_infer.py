@@ -52,6 +52,11 @@ FAMILIES = [
                             'nms_mask', 'nms_scan')),
     ('rotated matcher kernel', ('match_kernel', 'match_levels_kernel')),
     ('stem backward kernel', ('stem_pool_bwd',)),
+    # row 3 apart from row 2: one template, <T, true> saves the argmax
+    # (stem_pool_idx_kernel before the two were one template)
+    ('stem argmax forward kernel', (
+        'stem_pool_idx', 'stem_pool_fwd_kernel<__nv_bfloat16, true>',
+        'stem_pool_fwd_kernel<float, true>')),
     ('stem kernel', ('stem_pool',)),
     ('det_loss kernel', ('det_loss',)),
     ('optimizer (fused SGD)', ('fused_sgd', 'multi_tensor', 'sgd_')),

@@ -234,6 +234,94 @@ def test_stem_bwd_kernel_equals_plain_autograd(cuda_device, dtype):
         assert torch.equal(got, want)
 
 
+def _stem_nan_case(shape, dtype, device, seed=4):
+    """_stem_case with NaN planted in y (a corner included), and +-inf in
+    the last channel, whose scale is 0 (inf * 0 = NaN), +inf and -inf in
+    the others (an infinite window max, a ReLU zero)."""
+    y, scale, shift = _stem_case(shape, torch.float32, 'cpu', seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    y[torch.rand(shape, generator=g) < 0.01] = torch.nan
+    y[0, 0, 0, 0] = torch.nan
+    y[torch.rand(shape, generator=g) < 0.002] = torch.inf
+    y[torch.rand(shape, generator=g) < 0.002] = -torch.inf
+    scale[-1] = 0.0
+    y[:, -1][torch.rand(y[:, -1].shape, generator=g) < 0.05] = torch.inf
+    return y.to(device, dtype), scale.to(device), shift.to(device)
+
+
+def _equal_nan(a, b):
+    """Equal values (torch.equal's rule) with NaNs in the same places."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
+def test_stem_plain_nan_rule():
+    """A window that holds a NaN pools to NaN with the code 9, and the
+    plain version's autograd routes it nothing, as the codes do (and the
+    JAX package's VJP: tests/test_torch_stem_levels.py)."""
+    y, scale, shift = _stem_nan_case((2, 3, 13, 9), torch.float32, 'cpu')
+    out, idx = kstem.bn_relu_pool_idx_plain(y, scale, shift)
+    assert out.isnan().any() and not out.isnan().all()
+    assert (idx[out.isnan()] == kstem.SENTINEL).all()
+    assert _equal_nan(kstem.bn_relu_pool(y, scale, shift), out)
+    yr = y.clone().requires_grad_(True)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5))
+    want, = torch.autograd.grad(kstem.bn_relu_pool_train(yr, scale, shift),
+                                yr, g)
+    assert not want.isnan().any()
+    assert torch.equal(want,
+                       kstem.bn_relu_pool_bwd_plain(idx, g, scale, (13, 9)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(2, 64, 448, 576), (1, 3, 13, 9)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_stem_kernels_carry_nan(cuda_device, dtype, shape):
+    """Rows 2, 3 and 4 on NaN-planted inputs: the forwards equal the plain
+    version with NaNs in the same places, the codes equal the plain codes
+    (9 wherever the output is NaN), and the routing backward equals the
+    plain version's autograd."""
+    y, scale, shift = _stem_nan_case(shape, dtype, cuda_device)
+    got = kstem.bn_relu_pool(y, scale, shift)
+    out, idx = kstem.bn_relu_pool_idx(y, scale, shift)
+    torch.cuda.synchronize()
+    want, want_idx = kstem.bn_relu_pool_idx_plain(y, scale, shift)
+    assert want.isnan().any() and not want.isnan().all()
+    assert _equal_nan(got, want) and _equal_nan(out, want)
+    assert torch.equal(idx, want_idx)
+    assert (idx[want.isnan()] == kstem.SENTINEL).all()
+    g = torch.randn(_pool_shape(shape),
+                    generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda_device, dtype)
+    yr = y.clone().requires_grad_(True)
+    dy, = torch.autograd.grad(kstem.bn_relu_pool_train(yr, scale, shift),
+                              yr, g)
+    torch.cuda.synchronize()
+    want_dy, = torch.autograd.grad(kstem.bn_relu_pool_plain(yr, scale, shift),
+                                   yr, g)
+    assert torch.equal(dy, want_dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_stem_kernels_unaligned_and_tail_shapes(cuda_device, dtype):
+    """The forwards' scalar load and store paths: widths whose rows are not
+    16-byte aligned, a pooled width that is not a multiple of 4, a base
+    pointer off the 16-byte grid (a view one element in), a strip cut
+    short; codes and values equal to plain."""
+    for shape in [(2, 5, 37, 27), (1, 4, 448, 704), (1, 3, 30, 578),
+                  (2, 2, 17, 33)]:
+        y, scale, shift = _stem_case(shape, dtype, cuda_device, seed=6)
+        flat = torch.empty(y.numel() + 1, dtype=dtype, device=cuda_device)
+        for t in (y, flat[1:].view(shape).copy_(y)):
+            out, idx = kstem.bn_relu_pool_idx(t, scale, shift)
+            got = kstem.bn_relu_pool(t, scale, shift)
+            torch.cuda.synchronize()
+            want, want_idx = kstem.bn_relu_pool_idx_plain(t, scale, shift)
+            assert torch.equal(got, want) and torch.equal(out, want)
+            assert torch.equal(idx, want_idx)
+
+
 @pytest.mark.cuda
 def test_conv1_trains_through_the_stem_kernel(cuda_device):
     """The hazard of a kernel outside autograd: conv1's weight gradient

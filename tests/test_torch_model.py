@@ -184,6 +184,7 @@ def test_port_never_imports_jax():
             'import odtk_tpu_torch.io.jax_bridge\n'
             'import odtk_tpu_torch.profile_infer\n'
             'import odtk_tpu_torch.profile_engine\n'
+            'import odtk_tpu_torch.profile_stem\n'
             'import odtk_tpu_torch.profile_train, odtk_tpu_torch.train\n'
             'import odtk_tpu_torch.data, odtk_tpu_torch.utils\n'
             'import odtk_tpu_torch.export, odtk_tpu_torch.quantize\n'
@@ -195,6 +196,15 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == '[]'
+
+
+def test_profile_stem_needs_a_card(monkeypatch):
+    """The stem's timing script measures on a card or fails: it has no
+    CPU fallback."""
+    from odtk_tpu_torch import profile_stem
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='no CUDA device'):
+        profile_stem.main([])
 
 
 @pytest.mark.parametrize('name, fam', [
@@ -229,6 +239,18 @@ def test_port_never_imports_jax():
      'conv / GEMM math'),
     ('void (anonymous namespace)::stem_pool_kernel<__nv_bfloat16>',
      'stem kernel'),
+    ('void (anonymous namespace)::stem_pool_fwd_kernel<__nv_bfloat16, fals',
+     'stem kernel'),
+    ('void (anonymous namespace)::stem_pool_fwd_kernel<float, false>(float',
+     'stem kernel'),
+    ('void (anonymous namespace)::stem_pool_fwd_kernel<__nv_bfloat16, true>',
+     'stem argmax forward kernel'),
+    ('void (anonymous namespace)::stem_pool_fwd_kernel<float, true>(float c',
+     'stem argmax forward kernel'),
+    ('void (anonymous namespace)::stem_pool_idx_kernel<__nv_bfloat16>(__nv',
+     'stem argmax forward kernel'),
+    ('void (anonymous namespace)::stem_pool_bwd_kernel<float>(signed char',
+     'stem backward kernel'),
     ('void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>',
      'conv layout transform'),
     ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc',
