@@ -75,7 +75,9 @@ give it:
      first rotated step (equal wherever the plain best IoU is > 0, <= 0
      elsewhere, the assignment's depth equal), timed; the pairs it clips
      beside the pairs whose boxes overlap; and its unbatched variant vs
-     plain on one image of P3 (equal);
+     plain on one image of P3 and on degenerate cases (zero-area and NaN
+     quads, touching boxes, invalid rows before and between valid ones,
+     m = 33 and 200, 2920 anchors): equal bit for bit;
  14. rotated-loss: phase 5 at D = 6 on the first rotated step's heads;
  15. rotated-infer: ``odtk-tpu-torch infer`` on the rotated checkpoint
      (batch 2); the rotated NMS launched once per batch, detections
@@ -844,6 +846,12 @@ def train_reference_phase(ckpt, device, rotated=False):
         raise AssertionError(f'{name} card vs CPU out of bounds: {e}')
 
 
+def _bits_equal(got, want):
+    """(IoU, index) pairs equal, the IoUs bit for bit."""
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
 def _aabb_pairs(subj, rows, n_act):
     """(anchor, active target) pairs whose AABBs overlap: the pairs the
     matcher must clip, summed over the images."""
@@ -885,9 +893,16 @@ def rotated_match_phase(snaps):
     equal IoU and slot wherever the plain best IoU is > 0, <= 0 elsewhere,
     and the assignment's depth equal; timed, with the pairs it clips
     beside the pairs whose AABBs overlap. Then the unbatched variant vs
-    plain on the first image of P3: equal everywhere."""
+    plain on the first image of P3, with the pairs it clips beside the
+    pairs whose boxes overlap and every valid pair, and on the degenerate
+    cases of ``tests/rotated_cases.py`` (zero-area, NaN, infinite and
+    huge quads, touching boxes, ties, invalid rows before and between the
+    valid ones; m = 33 and 200; 2920 anchors): equal bit for bit."""
     from odtk_tpu_torch.ops import assign, iou_rotated
     from odtk_tpu_torch.ops.kernels import match_rotated as km
+
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from rotated_cases import degenerate_case
 
     targets, sizes, strides, tables, classes, ious = snaps
     cls, valid, _, boxes_rot = assign.rotated_targets(targets.float())
@@ -944,18 +959,37 @@ def rotated_match_phase(snaps):
     args = (quads[0], boxes_rot[0], valid[0])
     got = km.rotated_best_match(*args)
     want = km.rotated_best_match_plain(*args)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+    if not _bits_equal(got, want):
         raise AssertionError('rotated_best_match kernel != plain')
     n, m = quads[0].shape[0], boxes_rot.shape[1]
+    live = boxes_rot[0][valid[0]]
+    every = n * live.shape[0]
+    live_rows = torch.cat([live, live.new_zeros(live.shape[0], 1)], 1)
+    n_live = torch.tensor([live.shape[0]], device=live.device)
+    overlap = _aabb_pairs(quads[0], live_rows[None], n_live)
+    clipped = int(km.clip_mask(quads[0], live_rows[None], n_live).sum())
     best_row = dict(
         max_abs_err=0.0, ms=_median_ms(lambda: km.rotated_best_match(*args)),
         plain_ms=_median_ms(lambda: km.rotated_best_match_plain(*args),
                             runs=3, warmup=1),
-        bound=_bound(n * 32 + m * 36 + n * 8,
-                     n * int(valid[0].sum()) * CLIP_OPS))
-    print(f'rotated_best_match [{n}] x {m} (P3, image 0): equal, kernel '
+        bound=_bound(n * 32 + m * 33 + n * 8, overlap * CLIP_OPS),
+        pairs=overlap, clipped=clipped, every_pair=every)
+    print(f'rotated_best_match [{n}] x {m} (P3, image 0, '
+          f'{live.shape[0]} valid): equal bit for bit, kernel '
           f'{best_row["ms"]:.4f} ms, plain {best_row["plain_ms"]:.4f} ms, '
-          f'bound {best_row["bound"][0]:.4f} ms', flush=True)
+          f'bound {best_row["bound"][0]:.4f} ms; pairs clipped {clipped}, '
+          f'pairs whose boxes overlap {overlap}, every valid pair {every}',
+          flush=True)
+    for m_rows, invalid in ((33, True), (200, True), (33, False)):
+        d_args = [t.to(quads[0].device)
+                  for t in degenerate_case(m_rows, invalid=invalid)]
+        got = km.rotated_best_match(*d_args)
+        if not _bits_equal(got, km.rotated_best_match_plain(*d_args)):
+            raise AssertionError(f'rotated_best_match kernel != plain on '
+                                 f'the degenerate case, m = {m_rows}')
+        print(f'rotated_best_match degenerate [{d_args[0].shape[0]}] x '
+              f'{m_rows} ({int(d_args[2].sum())} valid): equal bit for bit',
+              flush=True)
     return match_row, best_row
 
 

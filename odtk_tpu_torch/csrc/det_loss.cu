@@ -61,12 +61,16 @@ namespace {
 
 using odtk::focal_grad_1exp;
 using odtk::focal_loss_1exp;
+using odtk::kVec;
+using odtk::load8;
+using odtk::load_targets;
+using odtk::store8;
+using odtk::Targets;
 using odtk::to_float;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFinishThreads = 256;
-constexpr int kVec = 8;        // consecutive hw positions a thread takes
 constexpr int kMaxLevels = 8;
 constexpr int kFields = 11;    // int64 fields a level in the host table
 
@@ -107,78 +111,12 @@ __device__ __forceinline__ int level_of(const Table& t, Level* lv) {
   return l;
 }
 
-// 8 values of a row from p: a vector load, or `count` scalar ones.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool vec,
-                                      int count, float v[kVec]) {
-  if (vec) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < kVec; ++m) v[m] = m < count ? to_float(p[m]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, bool vec, int count,
-                                      float v[kVec]) {
-  if (vec) {
-    const float4 lo = *reinterpret_cast<const float4*>(p);
-    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-  } else {
-#pragma unroll
-    for (int m = 0; m < kVec; ++m) v[m] = m < count ? p[m] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, bool vec,
-                                       int count, const float v[kVec]) {
-  if (vec) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[i] = static_cast<uint32_t>(
-                 __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))) |
-             (static_cast<uint32_t>(__bfloat16_as_ushort(
-                  __float2bfloat16_rn(v[2 * i + 1])))
-              << 16);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-#pragma unroll
-    for (int m = 0; m < kVec; ++m) {
-      if (m < count) p[m] = __float2bfloat16_rn(v[m]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, bool vec, int count,
-                                       const float v[kVec]) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int m = 0; m < kVec; ++m) {
-      if (m < count) p[m] = v[m];
-    }
-  }
-}
-
 // A thread's work: 8 positions hw0 .. hw0 + count - 1 of anchor a of
-// image b, with their targets: the class of a foreground anchor (-1
-// otherwise) and the valid and foreground bits.
+// image b, with their targets.
 struct Work {
   int ba, hw0, count;
   long long n0;  // target index of position hw0
-  int tcls[kVec];
-  unsigned valid, fg;
+  Targets t;
 };
 
 __device__ __forceinline__ bool thread_work(const Table& t, const Level& lv,
@@ -192,21 +130,7 @@ __device__ __forceinline__ bool thread_work(const Table& t, const Level& lv,
   const int b = w->ba / t.A;
   const int a = w->ba - b * t.A;
   w->n0 = ((long long)b * lv.hw + w->hw0) * t.A + a;
-  w->valid = w->fg = 0u;
-#pragma unroll
-  for (int m = 0; m < kVec; ++m) {
-    w->tcls[m] = -1;
-    if (m < w->count) {
-      const long long n = w->n0 + (long long)m * t.A;
-      const float dep = lv.depth[n];
-      const int c = lv.cls[n];
-      if (dep >= 0.f) w->valid |= 1u << m;
-      if (dep > 0.f) {
-        w->fg |= 1u << m;
-        w->tcls[m] = c;
-      }
-    }
-  }
+  w->t = load_targets(lv.cls, lv.depth, w->n0, t.A, w->count);
   return true;
 }
 
@@ -227,16 +151,17 @@ __global__ void __launch_bounds__(kThreads)
       load8(xrow + (long long)k * lv.hw, lv.vec, w.count, v);
 #pragma unroll
       for (int m = 0; m < kVec; ++m) {
-        const float loss =
-            focal_loss_1exp(v[m], w.tcls[m] == k, t.alpha, t.gamma);
-        cls_sum += (w.valid >> m) & 1u ? loss : 0.f;
+        const bool pos = w.t.cls[m] == k;
+        const float loss = focal_loss_1exp<false>(
+            v[m], pos, pos ? t.alpha : 1.f - t.alpha, t.gamma);
+        cls_sum += (w.t.valid >> m) & 1u ? loss : 0.f;
       }
     }
-    if (w.fg) {
+    if (w.t.fg) {
       const T* bxrow = static_cast<const T*>(lv.bx) +
                        (long long)w.ba * t.D * lv.hw + w.hw0;
       for (int m = 0; m < w.count; ++m) {
-        if (!((w.fg >> m) & 1u)) continue;
+        if (!((w.t.fg >> m) & 1u)) continue;
         const long long n = w.n0 + (long long)m * t.A;
         for (int j = 0; j < t.D; ++j) {
           const float d =
@@ -324,9 +249,10 @@ __global__ void __launch_bounds__(kThreads)
     load8(xrow + (long long)k * lv.hw, lv.vec, w.count, v);
 #pragma unroll
     for (int m = 0; m < kVec; ++m) {
-      const float grad =
-          focal_grad_1exp(v[m], w.tcls[m] == k, t.alpha, t.gamma);
-      v[m] = (w.valid >> m) & 1u ? g_cls * grad : 0.f;
+      const bool pos = w.t.cls[m] == k;
+      const float grad = focal_grad_1exp<false>(
+          v[m], pos, pos ? -t.alpha : 1.f - t.alpha, t.gamma);
+      v[m] = (w.t.valid >> m) & 1u ? g_cls * grad : 0.f;
     }
     store8(dxrow + (long long)k * lv.hw, lv.vec, w.count, v);
   }
@@ -338,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int m = 0; m < kVec; ++m) {
       v[m] = 0.f;
-      if (((w.fg >> m) & 1u) && m < w.count) {
+      if (((w.t.fg >> m) & 1u) && m < w.count) {
         const long long n = w.n0 + (long long)m * t.A;
         const float d =
             to_float(bxrow[(long long)j * lv.hw + m]) - lv.bt[n * t.D + j];

@@ -1,7 +1,7 @@
 // Rotated anchor matcher: for every anchor quad, the best (IoU, target) over
 // the targets of its image, by polygon clip (csrc/quad_iou.cuh).
 //
-// Replaces two TPU kernels:
+// Replaces two TPU kernels, both run by one kernel template:
 // - odtk_tpu/ops/pallas/match_rotated_kernel.py:rotated_match_pallas
 //   (_match_kernel), the batched matcher of every rotated training step:
 //   per image the packed active targets (rows of quad + original slot, the
@@ -10,9 +10,9 @@
 //   takes every FPN level of a step in one launch.
 // - odtk_tpu/ops/pallas/iou_kernel.py:rotated_best_match_pallas, taken here
 //   with the semantics of the JAX jnp form rotated_best_match that it
-//   stands for: one image, every target visited, an invalid one counting as
-//   IoU -1, no skip, index = target row. Entry odtk_rotated_best_match
-//   (best_match_kernel, one thread an anchor looping over the rows).
+//   stands for, exactly (kExact): one image, every target row visited in
+//   order, an invalid one counting as IoU -1, a strict '>' fold from
+//   (-2, 0), index = target row. Entry odtk_rotated_best_match.
 //
 // Bound on the card: operations. Each (anchor, target) pair that is
 // clipped costs ~276-1000 dependent fp32 operations, against 32 bytes of
@@ -31,27 +31,40 @@
 //     dependent chain, measured slower on the card than the tile skip's
 //     five launches. A block of an image without targets writes (-2, 0)
 //     and exits.
-//   - Chunks of 32 of the image's active target rows are staged in
-//     shared memory with their axis-aligned boxes. Each thread tests its
-//     anchor's box against the chunk's and appends the pairs that can
-//     overlap to a compacted list (a warp-aggregated append: one shared
-//     atomic a warp); then all 256 threads clip the list, so no lane idles
-//     on a skipped pair.
-//   - The skip rule is csrc/nms_rotated.cu's: a pair is skipped only when
-//     both quads are finite and their boxes, each widened by kSkipMargin
-//     (well over the 0.001 pad and the clip's rounding), are disjoint; its
-//     IoU is then 0 (or NaN for two zero-area quads), never > 0. A
-//     non-finite quad is always clipped.
-//   - The fold: several threads clip pairs of one anchor, so each IoU >= 0
-//     goes into a per-anchor 64-bit shared key by atomicMax on (IoU bits,
-//     ~t), t the packed row: IoU descending, then row ascending, which is
-//     the strict '>' fold in ascending slot order wherever the best IoU is
-//     > 0, deterministic whatever the order of the atomics. An anchor that
-//     no clipped pair reached with IoU >= 0 keeps (-2, slot 0).
+//   - Windows of 32 target rows: warp 0 stages the window's rows that take
+//     part (the active rows; kExact: the valid ones, compacted by a ballot)
+//     in shared memory with their axis-aligned boxes and half areas, so
+//     the row count is bounded by nothing but the loop, and a window of
+//     invalid rows clips nothing. Each thread tests its anchor's box
+//     against the staged ones and appends the pairs that can overlap to a
+//     compacted list (a warp-aggregated append: one shared atomic a
+//     warp); then all 256 threads clip the list, so no lane idles on a
+//     skipped pair.
+//   - The skip rule: a pair is skipped only when both quads have finite
+//     corners below kSkipLimit in magnitude, the target is convex in the
+//     clip's orientation (convex_left), and their boxes, each widened by
+//     kSkipMargin (well over the 0.001 pad and the clip's rounding at
+//     those magnitudes), are disjoint: the clip then ends with no area,
+//     inter = +0, and its IoU is 0 / uni, +0.0 where uni > 0 and NaN where
+//     both quads have no area (0 / 0). Any other pair is clipped (a
+//     non-finite corner, a coordinate beyond the limit, a target of
+//     collinear corners, which the clip does not bound).
+//   - The fold: several threads clip pairs of one anchor, so each IoU goes
+//     into a per-anchor 64-bit shared key by atomicMax on (the IoU's bits
+//     mapped to an unsigned order, -0.0 to +0.0 first; ~row): IoU
+//     descending, then row ascending, which is the strict '>' fold in row
+//     order, deterministic whatever the order of the atomics. NaN never
+//     enters (the fold's '>' never takes it). The batched form folds the
+//     IoUs >= 0 and leaves an anchor that no clipped pair reached at (-2,
+//     slot 0). kExact folds every IoU > -2, and beside the key keeps in
+//     registers the first skipped row whose stand-in is +0.0 and, for the
+//     block, the first invalid row (-1): the larger of the three keys is
+//     the fold's (IoU, row), and (-2, 0) where none exists.
 //
-// So wherever the plain fold's best IoU is > 0 the kernel's equals it, IoU
-// and slot; elsewhere both are <= 0 (background). The plain version
-// (ops/kernels/match_rotated.py) skips nothing.
+// So the batched form equals the plain fold wherever its best IoU is > 0,
+// IoU and slot, and both are <= 0 elsewhere (background); kExact equals
+// the plain fold everywhere. The plain versions (ops/kernels/
+// match_rotated.py) skip nothing.
 
 #include <cuda_runtime.h>
 
@@ -61,18 +74,16 @@
 
 namespace {
 
-constexpr int kRowWidth = 9;  // 4 corners (x, y), slot or valid flag
-
-// ------------------------------------------------ all levels, one launch
 constexpr int kThreads = 256;  // = anchors a tile
-constexpr int kChunk = 32;     // target rows staged at once: a bit each
+constexpr int kChunk = 32;     // target rows a window: a bit each
 constexpr int kMaxLevels = 8;
 constexpr int kFields = 5;     // int64 fields a level in the host table
 // A clip over disjoint boxes ends with count <= 2 vertices (inter 0) unless
 // rounding keeps a vertex within a few ulps of both quads; coordinates
-// below ~1e4 round by < 1e-3, so a gap of 0.25 after the 0.001 pad leaves
-// no such vertex (csrc/nms_rotated.cu).
+// below 2^13 round by < 1e-3 (fp32's spacing there), so a gap of 0.25
+// after the 0.001 pad leaves no such vertex (csrc/nms_rotated.cu).
 constexpr float kSkipMargin = 0.25f;
+constexpr float kSkipLimit = 8192.f;
 
 struct Level {
   const float* anchors;  // [n, 8]
@@ -105,21 +116,42 @@ __device__ __forceinline__ int level_of(const Table& t, int tile, Level* lv) {
   return l;
 }
 
-// A quad's axis-aligned box widened by kSkipMargin, and whether its
-// corners are finite.
+// Whether a quad's corners turn left at each of the four corners (every
+// cross product of consecutive edges > 0, rounded as the plain version
+// rounds it): a convex quad in the clip's orientation, whose four edge
+// half-planes meet in the quad itself. A quad whose corners are collinear
+// (a point, a segment, no area) meets them in a line or the plane: a clip
+// against it can keep a subject far outside its box.
+__device__ __forceinline__ bool convex_left(const float x[4],
+                                            const float y[4]) {
+  bool left = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = (j + 1) % 4, l = (j + 2) % 4;
+    left &= __fsub_rn(__fmul_rn(__fsub_rn(x[k], x[j]), __fsub_rn(y[l], y[k])),
+                      __fmul_rn(__fsub_rn(y[k], y[j]),
+                                __fsub_rn(x[l], x[k]))) > 0.f;
+  }
+  return left;
+}
+
+// A quad's axis-aligned box widened by kSkipMargin, and whether a pair of
+// it may be skipped: its corners finite and below kSkipLimit in magnitude
+// and, for a clip quad (a target row), convex_left.
 struct Box {
   float lo_x, lo_y, hi_x, hi_y;
-  bool finite;
+  bool skip;
 };
 
-__device__ __forceinline__ Box box_of(const float x[4], const float y[4]) {
+__device__ __forceinline__ Box box_of(const float x[4], const float y[4],
+                                      bool clip) {
   Box q;
-  q.finite = true;
+  q.skip = !clip || convex_left(x, y);
   q.lo_x = q.lo_y = INFINITY;
   q.hi_x = q.hi_y = -INFINITY;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    q.finite &= isfinite(x[c]) && isfinite(y[c]);
+    q.skip &= fabsf(x[c]) < kSkipLimit && fabsf(y[c]) < kSkipLimit;
     q.lo_x = fminf(q.lo_x, x[c]);
     q.hi_x = fmaxf(q.hi_x, x[c]);
     q.lo_y = fminf(q.lo_y, y[c]);
@@ -135,18 +167,41 @@ __device__ __forceinline__ Box box_of(const float x[4], const float y[4]) {
 __device__ __forceinline__ bool must_clip(const Box& a, const Box& t) {
   const bool disjoint = a.lo_x > t.hi_x || t.lo_x > a.hi_x ||
                         a.lo_y > t.hi_y || t.lo_y > a.hi_y;
-  return !(a.finite && t.finite && disjoint);
+  return !(a.skip && t.skip && disjoint);
 }
 
+// The fold's key of (IoU v, row): v's bits in an unsigned order (-0.0 as
+// +0.0), then ~row, so atomicMax keeps IoU descending, row ascending. v is
+// not NaN; every v > -2 gives a key > 0.
+__device__ __forceinline__ unsigned long long fold_key(float v, int row) {
+  const unsigned u = __float_as_uint(__fadd_rn(v, 0.f));
+  const unsigned order = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(order) << 32) |
+         ~static_cast<unsigned>(row);
+}
+
+__device__ __forceinline__ float fold_value(unsigned long long key) {
+  const unsigned order = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((order & 0x80000000u) ? (order & 0x7fffffffu)
+                                               : ~order);
+}
+
+// kExact = false: rows [levels, batch, m, 9] (quad, slot), the first
+// n_act[l, b] active; valid unused. kExact = true (one level, batch 1):
+// rows [m, 8] (quads), valid [m] (nonzero: valid); n_act unused.
+template <bool kExact>
 __global__ void __launch_bounds__(kThreads)
-    match_levels_kernel(const Table t, const float* __restrict__ rows,
-                        const int* __restrict__ n_act) {
-  __shared__ float ax[4][kThreads], ay[4][kThreads];
-  __shared__ float tx[4][kChunk], ty[4][kChunk];
+    match_kernel(const Table t, const float* __restrict__ rows,
+                 const int* __restrict__ n_act,
+                 const unsigned char* __restrict__ valid) {
+  constexpr int kRowWidth = kExact ? 8 : 9;
+  __shared__ float ax[4][kThreads], ay[4][kThreads], ahalf[kThreads];
+  __shared__ float tx[4][kChunk], ty[4][kChunk], thalf[kChunk];
   __shared__ Box tbox[kChunk];
-  __shared__ unsigned short pairs[kThreads * kChunk];  // anchor << 5 | row
+  __shared__ int trow[kChunk];                         // the staged rows
+  __shared__ unsigned short pairs[kThreads * kChunk];  // anchor << 5 | k
   __shared__ unsigned long long key[kThreads];
-  __shared__ int npairs;
+  __shared__ int nstaged, npairs, first_invalid;
 
   Level lv;
   const int b = blockIdx.x % t.batch;  // the images of a tile adjacent
@@ -156,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid & 31;
   const int i = (tile - lv.tile0) * kThreads + tid;
   const bool live = i < lv.n;
-  const int count = n_act[l * t.batch + b];
+  const int count = kExact ? t.m : n_act[l * t.batch + b];
   float* out_iou = lv.iou + (long long)b * lv.n;
   int* out_slot = lv.slot + (long long)b * lv.n;
   if (count == 0) {  // block-uniform
@@ -175,75 +230,105 @@ __global__ void __launch_bounds__(kThreads)
     ax[c][tid] = qx[c];
     ay[c][tid] = qy[c];
   }
-  const Box abox = box_of(qx, qy);
-  key[tid] = 0ull;  // read back by this thread only, after the chunks
+  const Box abox = box_of(qx, qy, false);
+  const float half = odtk::subject_half_area(qx, qy);
+  ahalf[tid] = half;
+  key[tid] = 0ull;    // read back by this thread only, after the windows
+  int zero_row = -1;  // kExact: the first skipped row standing for +0.0
+  if (tid == 0) first_invalid = -1;
 
   for (int c0 = 0; c0 < count; c0 += kChunk) {  // block-uniform
-    const int cn = min(kChunk, count - c0);
-    if (tid < cn) {
-      float cx[4], cy[4];
+    if (tid < 32) {
+      const int row = c0 + tid;
+      const bool in = row < count;
+      const bool part = in && (!kExact || valid[row] != 0);
+      const unsigned staged = __ballot_sync(0xffffffffu, part);
+      if (part) {
+        const int k = __popc(staged & ((1u << tid) - 1u));
+        float cx[4], cy[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        cx[c] = tx[c][tid] = r[(c0 + tid) * kRowWidth + 2 * c];
-        cy[c] = ty[c][tid] = r[(c0 + tid) * kRowWidth + 2 * c + 1];
+        for (int c = 0; c < 4; ++c) {
+          cx[c] = tx[c][k] = r[(long long)row * kRowWidth + 2 * c];
+          cy[c] = ty[c][k] = r[(long long)row * kRowWidth + 2 * c + 1];
+        }
+        tbox[k] = box_of(cx, cy, true);
+        thalf[k] = odtk::clip_half_area(cx, cy);
+        trow[k] = row;
       }
-      tbox[tid] = box_of(cx, cy);
-    }
-    if (tid == 0) npairs = 0;
-    __syncthreads();
-
-    // this anchor's rows that need a clip, one bit each, appended to the
-    // list at the warp's offset
-    unsigned hits = 0u;
-    if (live) {
-      for (int k = 0; k < cn; ++k) {
-        if (must_clip(abox, tbox[k])) hits |= 1u << k;
+      const unsigned invalid = __ballot_sync(0xffffffffu, in && !part);
+      if (tid == 0) {
+        nstaged = __popc(staged);
+        npairs = 0;
+        if (kExact && first_invalid < 0 && invalid) {
+          first_invalid = c0 + __ffs(invalid) - 1;
+        }
       }
-    }
-    const int mine = __popc(hits);
-    int incl = mine;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += v;
-    }
-    int base = 0;
-    if (lane == 31 && incl) base = atomicAdd(&npairs, incl);
-    base = __shfl_sync(0xffffffffu, base, 31);
-    for (int pos = base + incl - mine; hits; hits &= hits - 1u, ++pos) {
-      pairs[pos] = static_cast<unsigned short>((tid << 5) |
-                                               (__ffs(hits) - 1));
     }
     __syncthreads();
 
-    const int np = npairs;
-    for (int p = tid; p < np; p += kThreads) {
-      const int a = pairs[p] >> 5, k = pairs[p] & 31;
-      float sx[4], sy[4], cx[4], cy[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sx[c] = ax[c][a];  // the anchor is the subject
-        sy[c] = ay[c][a];
-        cx[c] = tx[c][k];  // the target the clip quad
-        cy[c] = ty[c][k];
+    const int cn = nstaged;
+    if (cn > 0) {  // block-uniform
+      // this anchor's staged rows that need a clip, one bit each, appended
+      // to the list at the warp's offset
+      unsigned hits = 0u;
+      if (live) {
+        for (int k = 0; k < cn; ++k) {
+          if (must_clip(abox, tbox[k])) {
+            hits |= 1u << k;
+          } else if (kExact && zero_row < 0 &&
+                     __fadd_rn(half, thalf[k]) > 0.f) {
+            zero_row = trow[k];
+          }
+        }
       }
-      const float iou = odtk::quad_iou(sx, sy, cx, cy);
-      if (iou >= 0.f) {  // + 0 makes a -0 +0, below every positive key
-        const unsigned bits = __float_as_uint(__fadd_rn(iou, 0.f));
-        atomicMax(&key[a], (static_cast<unsigned long long>(bits) << 32) |
-                               ~static_cast<unsigned>(c0 + k));
+      const int mine = __popc(hits);
+      int incl = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      int base = 0;
+      if (lane == 31 && incl) base = atomicAdd(&npairs, incl);
+      base = __shfl_sync(0xffffffffu, base, 31);
+      for (int pos = base + incl - mine; hits; hits &= hits - 1u, ++pos) {
+        pairs[pos] = static_cast<unsigned short>((tid << 5) |
+                                                 (__ffs(hits) - 1));
+      }
+      __syncthreads();
+
+      const int np = npairs;
+      for (int p = tid; p < np; p += kThreads) {
+        const int a = pairs[p] >> 5, k = pairs[p] & 31;
+        float sx[4], sy[4], cx[4], cy[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sx[c] = ax[c][a];  // the anchor is the subject
+          sy[c] = ay[c][a];
+          cx[c] = tx[c][k];  // the target the clip quad
+          cy[c] = ty[c][k];
+        }
+        const float iou = odtk::quad_iou(sx, sy, cx, cy,
+                                         __fadd_rn(ahalf[a], thalf[k]));
+        if (kExact ? iou > -2.f : iou >= 0.f) {
+          atomicMax(&key[a], fold_key(iou, trow[k]));
+        }
       }
     }
     __syncthreads();
   }
   if (live) {
-    const unsigned long long k = key[tid];
+    unsigned long long k = key[tid];
+    if (kExact && zero_row >= 0) k = max(k, fold_key(0.f, zero_row));
+    if (kExact && first_invalid >= 0) {
+      k = max(k, fold_key(-1.f, first_invalid));
+    }
     float best = -2.f;
     int slot = 0;
     if (k) {
-      best = __uint_as_float(static_cast<unsigned>(k >> 32));
-      const unsigned row = ~static_cast<unsigned>(k);
-      slot = static_cast<int>(r[(long long)row * kRowWidth + 8]);
+      best = fold_value(k);
+      const int row = static_cast<int>(~static_cast<unsigned>(k));
+      slot = kExact ? row : static_cast<int>(r[(long long)row * 9 + 8]);
     }
     out_iou[i] = best;
     out_slot[i] = slot;
@@ -279,40 +364,6 @@ bool make_table(const long long* host, int levels, int tiles, int batch,
   return next == tiles;
 }
 
-// --------------------------------------- one image, every row (row 8)
-__global__ void __launch_bounds__(kThreads)
-    best_match_kernel(const float* __restrict__ anchors,
-                      const float* __restrict__ rows, int n, int m,
-                      float* __restrict__ best_iou,
-                      int* __restrict__ best_idx) {
-  extern __shared__ float srow[];  // [m, 9]
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-  for (int k = tid; k < m * kRowWidth; k += kThreads) srow[k] = rows[k];
-  __syncthreads();
-  if (i >= n) return;
-  float ax[4], ay[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ax[k] = anchors[(long long)i * 8 + 2 * k];
-    ay[k] = anchors[(long long)i * 8 + 2 * k + 1];
-  }
-  float best = -2.f;
-  int idx = 0;
-  for (int t = 0; t < m; ++t) {
-    const float* r = srow + t * kRowWidth;
-    const float cx[4] = {r[0], r[2], r[4], r[6]};
-    const float cy[4] = {r[1], r[3], r[5], r[7]};
-    const float iou = r[8] > 0.f ? odtk::quad_iou(ax, ay, cx, cy) : -1.f;
-    if (iou > best) {
-      best = iou;
-      idx = t;
-    }
-  }
-  best_iou[i] = best;
-  best_idx[i] = idx;
-}
-
 }  // namespace
 
 // table: kFields int64 a level (anchors [n, 8] fp32, best_iou [batch, n]
@@ -332,24 +383,32 @@ extern "C" int odtk_match_rotated(const long long* table, int levels,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0 || batch == 0) return 0;
-  match_levels_kernel<<<tiles * batch, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(t, rows, n_act);
+  match_kernel<false><<<tiles * batch, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(t, rows, n_act,
+                                                             nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// anchors [n, 8], rows [m, 9] (quad, valid flag 1 or 0) -> best_iou [n]
-// fp32, best_idx [n] int32. All contiguous on the device. Returns
-// cudaGetLastError() after the launch.
-extern "C" int odtk_rotated_best_match(const float* anchors, const float* rows,
-                                       int n, int m, float* best_iou,
-                                       int* best_idx, void* stream) {
-  const size_t smem = size_t(m) * kRowWidth * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      best_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  best_match_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      anchors, rows, n, m, best_iou, best_idx);
+// anchors [n, 8], clips [m, 8] fp32, valid [m] bytes (nonzero: valid) ->
+// best_iou [n] fp32, best_idx [n] int32. All contiguous on the device. One
+// block a tile of 256 anchors. Returns cudaGetLastError() after the
+// launch.
+extern "C" int odtk_rotated_best_match(const float* anchors,
+                                       const float* clips,
+                                       const unsigned char* valid, int n,
+                                       int m, float* best_iou, int* best_idx,
+                                       void* stream) {
+  if (n < 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n + kThreads - 1) / kThreads;
+  if (tiles == 0) return 0;
+  Table t{};
+  t.lv[0] = Level{anchors, best_iou, best_idx, n, 0};
+  t.levels = 1;
+  t.tiles = tiles;
+  t.batch = 1;
+  t.m = m;
+  match_kernel<true><<<tiles, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(t, clips,
+                                                            nullptr, valid);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,12 +27,40 @@ namespace odtk {
 
 constexpr int kSlots = 8;
 
+// Half the shoelace area of the subject quad (its raw corners), rounded
+// as the clip rounds it.
+__device__ __forceinline__ float subject_half_area(const float sxr[4],
+                                                   const float syr[4]) {
+  float subj_area2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = (j + 1) % 4;
+    subj_area2 = __fadd_rn(subj_area2, __fsub_rn(__fmul_rn(sxr[j], syr[k]),
+                                                 __fmul_rn(syr[j], sxr[k])));
+  }
+  return __fdiv_rn(fabsf(subj_area2), 2.f);
+}
+
+// The same for the clip quad, whose terms the clip sums in another order.
+__device__ __forceinline__ float clip_half_area(const float cx[4],
+                                                const float cy[4]) {
+  float clip_area2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = (j + 1) % 4;
+    clip_area2 = __fsub_rn(__fadd_rn(clip_area2, __fmul_rn(cx[j], cy[k])),
+                           __fmul_rn(cy[j], cx[k]));
+  }
+  return __fdiv_rn(fabsf(clip_area2), 2.f);
+}
+
 // IoU of the subject (sxr, syr: its 4 raw corners) clipped against the
-// quad (cx, cy: 4 corners).
+// quad (cx, cy: 4 corners), given their union
+// uni = subject_half_area + clip_half_area (__fadd_rn).
 __device__ __forceinline__ float quad_iou(const float sxr[4],
                                           const float syr[4],
                                           const float cx[4],
-                                          const float cy[4]) {
+                                          const float cy[4], float uni) {
   float sx[kSlots], sy[kSlots];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -40,13 +68,6 @@ __device__ __forceinline__ float quad_iou(const float sxr[4],
     sy[k] = syr[k] == cy[k] ? __fadd_rn(syr[k], 0.001f) : syr[k];
     sx[k + 4] = 0.f;
     sy[k + 4] = 0.f;
-  }
-  float subj_area2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = (j + 1) % 4;
-    subj_area2 = __fadd_rn(subj_area2, __fsub_rn(__fmul_rn(sxr[j], syr[k]),
-                                                 __fmul_rn(syr[j], sxr[k])));
   }
 
   int count = 4;
@@ -129,19 +150,18 @@ __device__ __forceinline__ float quad_iou(const float sxr[4],
     inter2 = __fadd_rn(inter2, term);
   }
   const float inter = count > 2 ? __fdiv_rn(fabsf(inter2), 2.f) : 0.f;
-
-  float clip_area2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = (j + 1) % 4;
-    clip_area2 = __fsub_rn(__fadd_rn(clip_area2, __fmul_rn(cx[j], cy[k])),
-                           __fmul_rn(cy[j], cx[k]));
-  }
-  const float uni = __fadd_rn(__fdiv_rn(fabsf(subj_area2), 2.f),
-                              __fdiv_rn(fabsf(clip_area2), 2.f));
   const float iou = __fdiv_rn(inter, __fsub_rn(uni, inter));
   if (isnan(inter)) return isnan(uni) ? 1.f : 0.f;
   return iou;
+}
+
+__device__ __forceinline__ float quad_iou(const float sxr[4],
+                                          const float syr[4],
+                                          const float cx[4],
+                                          const float cy[4]) {
+  return quad_iou(sxr, syr, cx, cy,
+                  __fadd_rn(subject_half_area(sxr, syr),
+                            clip_half_area(cx, cy)));
 }
 
 }  // namespace odtk

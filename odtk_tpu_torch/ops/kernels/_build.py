@@ -48,7 +48,7 @@ _SIGNATURES = {
                           _P],
     'odtk_nms_rotated': [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     'odtk_match_rotated': [_P, _I, _I, _P, _P, _I, _I, _P],
-    'odtk_rotated_best_match': [_P, _P, _I, _I, _P, _P, _P],
+    'odtk_rotated_best_match': [_P, _P, _P, _I, _I, _P, _P, _P],
     'odtk_focal_sum': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _L,
                        _L, _F, _F, _P],
     'odtk_focal_sum_dx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,

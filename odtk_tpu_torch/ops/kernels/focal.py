@@ -5,10 +5,11 @@ Replaces ``odtk_tpu/ops/pallas/focal_kernel.py:focal_sum_fused``: its
 forward sum (the ``pallas_call`` at ``:123``) and the backward that
 recomputes the terms and writes dlogits (``:147``), tied together as the
 JAX custom VJP ties them (``:170-182``): the backward saves the inputs,
-not unit gradients. Both kernels are bound by memory bandwidth (see the
-note in csrc/focal_sum.cu). No path of the JAX package or of the port
-calls it: the model's loss is ``loss.detection_loss_sums_levels`` (row
-5).
+not unit gradients. Both kernels take row 5's memory side (16-byte
+loads of 8 positions a thread) and one exponential a logit, in the
+accurate library functions (see the note in csrc/focal_sum.cu). No path
+of the JAX package or of the port calls it: the model's loss is
+``loss.detection_loss_sums_levels`` (row 5).
 ``focal_sum`` takes the plain version for tensors on the CPU and the
 kernels for CUDA tensors; there is no fallback between them.
 """
@@ -19,7 +20,9 @@ from ..losses import focal_loss
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256          # kThreads of csrc/focal_sum.cu
+_THREADS = 128          # kThreads of csrc/focal_sum.cu
+_TARGET_THREADS = 1 << 17   # kTargetThreads
+_VEC = 8                # kVec of csrc/focal.cuh: positions a thread takes
 
 
 def focal_sum_plain(cls_head, cls_idx, depth, classes, alpha=0.25,
@@ -39,8 +42,8 @@ def focal_sum_plain(cls_head, cls_idx, depth, classes, alpha=0.25,
 
 
 def _geometry(x, cls_idx, depth, classes):
-    """Shape checks, the targets as fp32 contiguous on x's device, and the
-    kernels' (B, A, K, HW, sB, sC, sHW) arguments."""
+    """Shape checks, the targets (cls int32, depth fp32) contiguous on x's
+    device, and the kernels' (B, A, K, HW, sB, sC, sHW) arguments."""
     if x.device.type != 'cuda' or x.dtype not in _DTYPES or x.dim() != 4:
         raise ValueError('focal_sum: the head must be a CUDA fp32/bf16 '
                          f'[B, H, W, A*K] tensor, got {tuple(x.shape)} '
@@ -52,7 +55,7 @@ def _geometry(x, cls_idx, depth, classes):
         raise ValueError(f'focal_sum: head {tuple(x.shape)} with strides '
                          f'{x.stride()} is not [B, H, W, A*{classes}] with '
                          'mergeable H and W')
-    cls_idx = cls_idx.to(x.device, torch.float32).contiguous()
+    cls_idx = cls_idx.to(x.device, torch.int32).contiguous()
     depth = depth.to(x.device, torch.float32).contiguous()
     n = h * w * anchors
     if cls_idx.shape != (b, n) or depth.shape != (b, n):
@@ -60,21 +63,33 @@ def _geometry(x, cls_idx, depth, classes):
     return cls_idx, depth, (b, anchors, classes, h * w, sb, sc, sw)
 
 
+def kernel_blocks(b, anchors, classes, hw):
+    """The forward kernel's block count (``make_level`` of
+    csrc/focal_sum.cu): a thread takes 8 positions of one (image, anchor)
+    and one slice of the classes, K cut into as few slices as give the
+    launch ``_TARGET_THREADS`` threads."""
+    base = b * anchors * -(-hw // _VEC)
+    split = min(-(-_TARGET_THREADS // base), classes) if base else 1
+    kc = -(-classes // split)
+    return -(-(base * -(-classes // kc)) // _THREADS)
+
+
 def focal_sum_kernel(cls_head, cls_idx, depth, classes, alpha=0.25,
                      gamma=2.0):
-    """One launch of the forward kernel: the fp32 sum as a [] tensor."""
+    """One launch of the forward kernel and its finish: the fp32 sum as a
+    [] tensor. One allocation: the block partials and the sum after them."""
     cls_idx, depth, geo = _geometry(cls_head, cls_idx, depth, classes)
     b, anchors, _, hw = geo[:4]
-    out = torch.empty((), dtype=torch.float32, device=cls_head.device)
-    nblocks = -(-hw // _THREADS) * b * anchors
-    partials = torch.empty(max(nblocks, 1), dtype=torch.float32,
-                           device=cls_head.device)
+    nblocks = kernel_blocks(b, anchors, classes, hw)
+    scratch = torch.empty(nblocks + 1, dtype=torch.float32,
+                          device=cls_head.device)
+    out = scratch[nblocks]
     if nblocks == 0:
         return out.zero_()
     with torch.cuda.device(cls_head.device):
         rc = _build.library().odtk_focal_sum(
             cls_head.data_ptr(), cls_idx.data_ptr(), depth.data_ptr(),
-            partials.data_ptr(), nblocks, out.data_ptr(),
+            scratch.data_ptr(), nblocks, out.data_ptr(),
             _DTYPES[cls_head.dtype], *geo, alpha, gamma,
             _build.stream_handle(cls_head.device))
     _build.check(rc, 'odtk_focal_sum')

@@ -14,17 +14,24 @@ their plain PyTorch versions, for two entry points.
 - ``rotated_best_match`` replaces
   ``odtk_tpu/ops/pallas/iou_kernel.py:rotated_best_match_pallas`` with
   the semantics of the jnp ``rotated_best_match`` it stands for: one
-  image, every target visited, an invalid one counting as IoU -1,
-  (best_iou [N], best_idx [N] int32), no skip.
+  image, every target visited in order, an invalid one counting as IoU
+  -1, (best_iou [N], best_idx [N] int32), any number of targets. Its
+  kernel is the batched one's template run exactly: it skips the same
+  pairs and lets each stand for what its clip gives (+0.0, or NaN when
+  neither quad has an area), folds every IoU > -2 by (IoU descending,
+  row ascending) with the first invalid row at -1, and so equals the
+  plain version bit for bit (``tests/test_torch_best_match.py`` replays
+  it on the CPU).
 
 What the batched kernel and its plain version share, and where they
 differ. Both clip by ``_soa_clip_iou``'s arithmetic, so each IoU they
 compute is the same bit for bit. The kernel clips only the (anchor,
 target) pairs whose axis-aligned boxes, widened by ``SKIP_MARGIN``, meet
-or that hold a non-finite corner (``clip_mask``); a skipped pair's IoU
-is 0 (or NaN), never > 0. It folds each anchor's IoUs >= 0 by (IoU
-descending, packed row ascending), the strict ``>`` fold's order, and an
-anchor that no clipped pair reached keeps (-2, slot 0). So wherever the
+or that hold a corner that is not finite or not below ``SKIP_LIMIT`` in
+magnitude, or whose target is not ``convex_left`` (``clip_mask``); a
+skipped pair's IoU is 0 (or NaN), never > 0. It folds each anchor's IoUs >= 0 by (IoU descending, packed row
+ascending), the strict ``>`` fold's order, and an anchor that no clipped
+pair reached keeps (-2, slot 0). So wherever the
 plain best IoU is > 0 the kernel's equals it, IoU and slot; everywhere
 else both are <= 0, below the background threshold ``lo``. So the
 assignment's ``depth`` is equal everywhere, and its class and deltas
@@ -43,10 +50,10 @@ import torch
 from ..iou_rotated import _corner_lists, clip_iou
 from . import _build
 
-MAX_ROWS = 6400            # rotated_best_match: 36 bytes a row of smem
 TILE = 256                 # kThreads of csrc/match_rotated.cu: anchors a tile
 MAX_LEVELS = 8             # kMaxLevels
 SKIP_MARGIN = 0.25         # kSkipMargin: the widening of the AABB skip
+SKIP_LIMIT = 8192.0        # kSkipLimit: larger coordinates are clipped
 
 
 def rotated_match_plain(anchors, rows, n_act):
@@ -73,21 +80,40 @@ def rotated_match_levels_plain(anchors, rows, n_act):
             for level, a in enumerate(anchors)]
 
 
-def _boxes(quads):
+def convex_left(quads):
+    """[...]: whether quads [..., 8] turn left at each corner (every cross
+    product of consecutive edges > 0, fp32): convex in the clip's
+    orientation (``convex_left`` of csrc/match_rotated.cu)."""
+    x, y = quads[..., 0::2], quads[..., 1::2]
+    left = torch.ones(quads.shape[:-1], dtype=torch.bool,
+                      device=quads.device)
+    for j in range(4):
+        k, m = (j + 1) % 4, (j + 2) % 4
+        left &= ((x[..., k] - x[..., j]) * (y[..., m] - y[..., k])
+                 - (y[..., k] - y[..., j]) * (x[..., m] - x[..., k])) > 0
+    return left
+
+
+def _boxes(quads, clip):
     """Axis-aligned boxes (lo [..., 2], hi [..., 2]) of quads [..., 8],
-    widened by SKIP_MARGIN, and whether all corners are finite."""
+    widened by SKIP_MARGIN, and whether a pair of the quad may be
+    skipped: all corners finite and below SKIP_LIMIT in magnitude and,
+    for a clip quad (a target), ``convex_left``."""
     pts = quads.reshape(*quads.shape[:-1], 4, 2)
-    return (pts.amin(-2) - SKIP_MARGIN, pts.amax(-2) + SKIP_MARGIN,
-            torch.isfinite(quads).all(-1))
+    skip = (quads.abs() < SKIP_LIMIT).all(-1)
+    if clip:
+        skip &= convex_left(quads)
+    return pts.amin(-2) - SKIP_MARGIN, pts.amax(-2) + SKIP_MARGIN, skip
 
 
 def clip_mask(anchors, rows, n_act):
     """[B, N, M] bool: the (image, anchor, packed row) pairs the batched
-    kernel clips. A pair of an active row is clipped unless both quads
-    are finite and their boxes, each widened by SKIP_MARGIN, are
-    disjoint (csrc/match_rotated.cu, csrc/nms_rotated.cu)."""
-    lo, hi, fin = _boxes(anchors.float())                  # [N, 2], [N]
-    tlo, thi, tfin = _boxes(rows[..., :8].float())         # [B, M, 2]
+    kernel clips. A pair of an active row is clipped unless both quads'
+    corners are finite and below SKIP_LIMIT in magnitude, the row is
+    ``convex_left`` and their boxes, each widened by SKIP_MARGIN, are
+    disjoint (csrc/match_rotated.cu)."""
+    lo, hi, fin = _boxes(anchors.float(), False)           # [N, 2], [N]
+    tlo, thi, tfin = _boxes(rows[..., :8].float(), True)   # [B, M, 2]
     apart = ((lo[None, :, None] > thi[:, None])
              | (tlo[:, None] > hi[None, :, None])).any(-1)  # [B, N, M]
     skip = fin[None, :, None] & tfin[:, None] & apart
@@ -196,12 +222,14 @@ def rotated_best_match(anchors, clips, valid):
                                         valid.bool())
     anchors = _check_anchors(anchors, 'rotated_best_match')
     m = clips.shape[0]
-    if (clips.shape != (m, 8) or valid.shape != (m,) or m > MAX_ROWS
+    if (clips.shape != (m, 8) or valid.shape != (m,)
             or clips.device != anchors.device
             or valid.device != anchors.device):
         raise ValueError(f'rotated_best_match: clips {tuple(clips.shape)}, '
-                         f'valid {tuple(valid.shape)} (at most {MAX_ROWS})')
-    rows = torch.cat([clips.float(), valid.float()[:, None]], 1).contiguous()
+                         f'valid {tuple(valid.shape)} on {clips.device}, '
+                         f'{valid.device}')
+    clips = clips.float().contiguous()
+    valid = valid.bool().contiguous()
     n = anchors.shape[0]
     best_iou = anchors.new_empty(n)
     best_idx = torch.empty(n, dtype=torch.int32, device=anchors.device)
@@ -209,8 +237,9 @@ def rotated_best_match(anchors, clips, valid):
         return best_iou, best_idx
     with torch.cuda.device(anchors.device):
         rc = _build.library().odtk_rotated_best_match(
-            anchors.data_ptr(), rows.data_ptr(), n, m, best_iou.data_ptr(),
-            best_idx.data_ptr(), _build.stream_handle(anchors.device))
+            anchors.data_ptr(), clips.data_ptr(), valid.data_ptr(), n, m,
+            best_iou.data_ptr(), best_idx.data_ptr(),
+            _build.stream_handle(anchors.device))
     _build.check(rc, 'odtk_rotated_best_match')
     rotated_best_match.launches += 1
     return best_iou, best_idx

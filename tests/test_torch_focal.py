@@ -107,6 +107,96 @@ def test_focal_sum_plain_float64_gradient_is_the_closed_form(case):
                                rtol=1e-12, atol=0)
 
 
+# ------------------------------------------- the kernels' one-exponential form
+def one_exp_terms(x, t, alpha=0.25, gamma=2.0):
+    """The CUDA kernels' arithmetic (csrc/focal.cuh, focal_parts<true>) in
+    torch fp32: e = exp(-|x|), both sigmoid halves from one reciprocal of
+    1 + e, p_t the one that agrees with the target, q the other, and
+    ce = log1p(e) + (0 where they agree, else |x|). Returns (loss, d
+    loss / dx) a logit."""
+    x = x.float()
+    ax = x.abs()
+    e = torch.exp(-ax)
+    big = torch.reciprocal(1.0 + e)
+    small = e * big
+    agree = t == (x >= 0)
+    p_t = torch.where(agree, big, small)
+    q = torch.where(agree, small, big)
+    ce = torch.log1p(e) + torch.where(agree, 0.0, ax)
+    qg = q * q if gamma == 2.0 else q ** gamma
+    loss = torch.where(t, alpha, 1.0 - alpha) * qg * ce
+    grad = torch.where(t, -alpha, 1.0 - alpha) * qg * (gamma * p_t * ce + q)
+    return loss, grad
+
+
+def replay_focal_sum(head, cls_idx, depth, k, g):
+    """The kernels on the CPU: (the sum over valid logits, summed in
+    float64 as the kernels' finish does; dx = g valid d loss / dx in the
+    head's dtype)."""
+    b = head.shape[0]
+    x = head.reshape(b, -1, k)
+    t = ((cls_idx.long()[..., None] == torch.arange(k))
+         & (depth > 0)[..., None])
+    valid = (depth >= 0)[..., None]
+    loss, grad = one_exp_terms(x, t)
+    total = torch.where(valid, loss, 0.0).double().sum().float()
+    dx = torch.where(valid, g * grad, 0.0).to(head.dtype)
+    return total, dx.reshape(head.shape)
+
+
+def _extreme_case(seed, dtype):
+    """B = 2, 3 x 5 positions, A = 3, K = 5, logits of +-30 and 0 planted
+    among random ones of scale 4, ignored, background and foreground
+    anchors."""
+    head, cls_idx, depth, k = _case(seed, 2, 3, 5, 3, 5)
+    rng = np.random.RandomState(seed + 100)
+    flat = head.reshape(-1)
+    flat[:] = rng.randn(flat.size).astype(np.float32) * 4
+    spots = rng.choice(flat.size, 60, replace=False)
+    flat[spots[:20]], flat[spots[20:40]], flat[spots[40:]] = 30.0, -30.0, 0.0
+    head = torch.from_numpy(head).to(dtype).float().numpy()
+    return head, cls_idx, depth, k
+
+
+# phase 6 of chip_smoke.py: the sum within a relative 1e-6; dx within one
+# bf16 ulp (bf16) or FOCAL_DX_RTOL = 1e-5 (fp32), plus FOCAL_DX_ATOL = 1e-10
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('seed', [0, 7])
+def test_one_exp_replay_matches_jax_and_float64(dtype, seed):
+    """The kernels' one-exponential arithmetic, replayed in fp32, against
+    ``focal_sum_fused`` (interpret mode) and its ``jax.grad``, and against
+    the plain version's autograd in float64, within phase 6's tolerances,
+    on logits of +-30 and 0 among random ones, bf16 and fp32 heads. At a
+    logit of exactly 0 autograd of the plain form takes the subgradients
+    of its clamp and abs: those elements are held to the derivative
+    against the JAX kernel only."""
+    head, cls_idx, depth, k = _extreme_case(seed, dtype)
+    x = torch.from_numpy(head).to(dtype)
+    ci, dp = torch.from_numpy(cls_idx), torch.from_numpy(depth)
+    total, dx = replay_focal_sum(x, ci, dp, k, 0.37)
+    want = float(focal_sum_fused(jnp.asarray(head), jnp.asarray(cls_idx),
+                                 jnp.asarray(depth), classes=k,
+                                 interpret=True))
+    assert abs(total.item() - want) <= 1e-6 * abs(want)
+    x64 = x.double().requires_grad_(True)
+    s64 = focal.focal_sum_plain(x64, ci, dp, k)
+    assert abs(total.item() - s64.item()) <= 1e-6 * abs(s64.item())
+    ref, = torch.autograd.grad(s64, x64, torch.tensor(0.37,
+                                                      dtype=torch.float64))
+    jdx = torch.from_numpy(np.asarray(jax.grad(lambda v: focal_sum_fused(
+        v, jnp.asarray(cls_idx), jnp.asarray(depth), classes=k,
+        interpret=True) * 0.37)(jnp.asarray(head)))).double()
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    if dtype == torch.bfloat16:
+        ref = ref.bfloat16().double()
+        jdx = jdx.bfloat16().double()
+    nz = x != 0
+    got = dx.double()
+    torch.testing.assert_close(got[nz], ref[nz], rtol=rtol, atol=1e-10)
+    torch.testing.assert_close(got, jdx, rtol=rtol, atol=1e-10)
+    assert (x.abs() == 30).sum() == 40 and (x == 0).sum() >= 20
+
+
 def test_focal_kernel_wrappers_refuse_cpu_tensors():
     """The kernels take CUDA tensors only: there is no fallback."""
     head, cls_idx, depth, k = _case(*CASES['default'])

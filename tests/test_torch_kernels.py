@@ -24,6 +24,7 @@ from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 from odtk_tpu_torch.ops.kernels import nms as knms
 from odtk_tpu_torch.ops.kernels import nms_rotated as knms_rot
 from odtk_tpu_torch.ops.kernels import stem as kstem
+from rotated_cases import degenerate_case
 
 
 @pytest.fixture()
@@ -732,6 +733,49 @@ def test_rotated_best_match_kernel_equals_plain(cuda_device):
     assert (got[0] > 0.5).any()
 
 
+def _bits_equal(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m, invalid', [(33, True), (200, True),
+                                        (33, False)])
+def test_rotated_best_match_kernel_degenerate_equals_plain(cuda_device, m,
+                                                           invalid):
+    """Row 8 on degenerate inputs (``rotated_cases.degenerate_case``:
+    zero-area, NaN, infinite and huge quads, touching boxes, ties, invalid
+    rows before and between the valid ones, 2920 anchors): IoU bit for
+    bit and index equal to the plain fold, one launch."""
+    anchors, clips, valid = (t.to(cuda_device) for t in
+                             degenerate_case(m, invalid=invalid))
+    before = kmatch.rotated_best_match.launches
+    got = kmatch.rotated_best_match(anchors, clips, valid)
+    torch.cuda.synchronize()
+    assert kmatch.rotated_best_match.launches == before + 1
+    _bits_equal(got, kmatch.rotated_best_match_plain(anchors, clips, valid))
+    assert (got[0] > 0.5).any() and (got[0] == 0).any()
+
+
+@pytest.mark.cuda
+def test_rotated_best_match_kernel_takes_any_row_count(cuda_device):
+    """Row 8 against 7000 target rows (the former kernel staged every row
+    in shared memory and refused more than 6400), a third invalid: equal
+    to the plain fold bit for bit."""
+    rng = np.random.RandomState(3)
+    anchors, _, _ = degenerate_case(33)
+    t = np.zeros((7000, 5), np.float32)
+    t[:, :2] = rng.uniform(-10, 90, (7000, 2))
+    t[:, 2:4] = rng.uniform(4, 50, (7000, 2))
+    t[:, 4] = rng.uniform(-np.pi / 4, np.pi / 4, 7000)
+    _, clips = rotate_boxes(torch.from_numpy(t))
+    valid = torch.from_numpy(rng.rand(7000) > 1 / 3)
+    args = [a.to(cuda_device) for a in (anchors[:-4], clips, valid)]
+    got = kmatch.rotated_best_match(*args)
+    torch.cuda.synchronize()
+    _bits_equal(got, kmatch.rotated_best_match_plain(*args))
+
+
 def test_rotated_kernel_wrappers_reject_bad_input():
     meta = torch.zeros(1, 10, device='meta')
     with pytest.raises(ValueError):
@@ -781,39 +825,81 @@ def _focal_case(device, dtype, hw, b=2, a=9, k=80, seed=0):
     return x.permute(0, 2, 3, 1), cls_idx, depth, k
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('hw', [(13, 21), (100, 144), (1, 1)])
-def test_focal_kernels_equal_plain(cuda_device, dtype, hw):
-    """Row 6: the forward sum within a relative 1e-6 of the plain one;
-    dx = d(0.37 sum)/dx elementwise against the plain version's autograd
-    in float64: within one bf16 ulp of it rounded to bf16 (bf16), or a
-    relative 1e-5 (fp32), plus 1e-10, far below the smallest values that
-    matter (the fp32 closed form, as the TPU kernel's, computes
+def _hold_focal_to_plain(x, cls_idx, depth, k, got, dx, g):
+    """Row 6's checks: the forward sum within a relative 1e-6 of the
+    plain one; dx = d(g sum)/dx elementwise against the plain version's
+    autograd in float64: within one bf16 ulp of it rounded to bf16 (bf16),
+    or a relative 1e-5 (fp32), plus 1e-10, far below the smallest values
+    that matter (the fp32 closed form, as the TPU kernel's, computes
     q = 1 - p_t and so loses relative precision only where q and
-    |dx| ~ q^3 are tiny)."""
-    x, cls_idx, depth, k = _focal_case(cuda_device, dtype, hw)
-    g = torch.tensor(0.37, device=cuda_device)
-    got = kfocal.focal_sum_kernel(x, cls_idx, depth, k)
-    dx = kfocal.focal_sum_dx_kernel(x, cls_idx, depth, g, k)
-    torch.cuda.synchronize()
+    |dx| ~ q^3 are tiny); dx in the head's dtype and strides."""
     xf = x.detach().float().requires_grad_(True)
     want = kfocal.focal_sum_plain(xf, cls_idx, depth, k)
     assert abs(got.item() - want.item()) <= 1e-6 * abs(want.item())
-    assert dx.dtype == dtype and dx.stride() == x.stride()
+    assert dx.dtype == x.dtype and dx.stride() == x.stride()
     x64 = x.detach().double().requires_grad_(True)
     ref, = torch.autograd.grad(kfocal.focal_sum_plain(x64, cls_idx, depth, k),
                                x64, g.double())
     # at a logit of exactly 0, autograd of the plain form takes the
     # subgradients of its clamp and abs; the kernel has the derivative
     nz = x != 0
-    if dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16:
         torch.testing.assert_close(dx.double()[nz],
                                    ref.bfloat16().double()[nz],
                                    rtol=2 ** -7, atol=1e-10)
     else:
         torch.testing.assert_close(dx.double()[nz], ref[nz], rtol=1e-5,
                                    atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hw', [(13, 21), (100, 144), (1, 1)])
+def test_focal_kernels_equal_plain(cuda_device, dtype, hw):
+    """Row 6 on the NHWC view of an NCHW head, the vector path where HW
+    is a multiple of 8 (100 x 144), the scalar one elsewhere: within the
+    plain version's tolerances (``_hold_focal_to_plain``)."""
+    x, cls_idx, depth, k = _focal_case(cuda_device, dtype, hw)
+    g = torch.tensor(0.37, device=cuda_device)
+    got = kfocal.focal_sum_kernel(x, cls_idx, depth, k)
+    dx = kfocal.focal_sum_dx_kernel(x, cls_idx, depth, g, k)
+    torch.cuda.synchronize()
+    _hold_focal_to_plain(x, cls_idx, depth, k, got, dx, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', ['nchw_view', 'nhwc'])
+@pytest.mark.parametrize('hw', [(14, 18), (7, 9)])
+def test_focal_kernels_scalar_paths_repeat(cuda_device, dtype, layout, hw):
+    """Row 6 where HW is not a multiple of 8 (P6's 252 and P7's 63
+    positions at the train canvas), on the NHWC view of an NCHW head and
+    on a contiguous NHWC head (both the scalar path, the classes cut into
+    slices): within the plain version's tolerances, and the same bits on
+    a second run (the sum's fixed order)."""
+    x, cls_idx, depth, k = _focal_case(cuda_device, dtype, hw)
+    if layout == 'nhwc':
+        x = x.contiguous()
+    g = torch.tensor(0.37, device=cuda_device)
+    runs = [(kfocal.focal_sum_kernel(x, cls_idx, depth, k),
+             kfocal.focal_sum_dx_kernel(x, cls_idx, depth, g, k))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    _hold_focal_to_plain(x, cls_idx, depth, k, *runs[0], g)
+
+
+def test_focal_kernel_blocks_cut_small_levels_into_class_slices():
+    """The forward kernel's grid (``kernel_blocks``, the mirror of
+    csrc/focal_sum.cu's make_level): at the train shape (b=8, A=9, K=80)
+    P3 takes all 80 classes a thread, the smaller levels cut them into
+    slices until a launch has ~2^17 threads; a thread always has 8
+    positions of one (image, anchor)."""
+    want = {16128: 1134, 4032: 1134, 1008: 993, 252: 720, 63: 360}
+    for hw, blocks in want.items():
+        assert kfocal.kernel_blocks(8, 9, 80, hw) == blocks
+    assert kfocal.kernel_blocks(2, 9, 80, 0) == 0
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 on the CPU, and the levels form of the rotated assignment.
 
 The kernel clips an (anchor, target) pair only when the two quads' axis-
-aligned boxes, each widened by 0.25, meet, or when a corner is not finite;
+aligned boxes, each widened by 0.25, meet, when a corner is not finite or
+not below 8192 in magnitude, or when the target's corners are collinear;
 it folds each anchor's IoUs >= 0 by (IoU descending, packed row
 ascending) and leaves an anchor that no clipped pair reached at (-2, slot
 0). ``replay_match`` below repeats that on the CPU; the tests hold it to
@@ -37,6 +38,7 @@ from odtk_tpu_torch.ops.iou_rotated import (_corner_lists, clip_iou,
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 
 SKIP_MARGIN = 0.25          # kSkipMargin of csrc/match_rotated.cu
+SKIP_LIMIT = 8192.0         # kSkipLimit
 TILE = 256                  # anchors a block
 RATIOS = [1.0, 2.0, 0.5]
 SCALES = [4 * 2 ** (i / 3) for i in range(3)]
@@ -56,16 +58,19 @@ def _one_target_per_stream_step():
 
 
 def skipped(anchors, rows):
-    """[B, N, M]: the pair may go unclipped: both quads finite and their
-    axis-aligned boxes, each widened by SKIP_MARGIN, disjoint."""
+    """[B, N, M]: the pair may go unclipped: both quads' corners finite
+    and below SKIP_LIMIT in magnitude, the row convex (``convex_left``:
+    not of collinear corners), and their axis-aligned boxes, each widened
+    by SKIP_MARGIN, disjoint."""
     a = anchors.reshape(-1, 4, 2)
     t = rows[..., :8].reshape(*rows.shape[:2], 4, 2)
     lo, hi = a.amin(1) - SKIP_MARGIN, a.amax(1) + SKIP_MARGIN     # [N, 2]
     tlo, thi = t.amin(2) - SKIP_MARGIN, t.amax(2) + SKIP_MARGIN   # [B, M, 2]
     apart = ((lo[None, :, None] > thi[:, None])
              | (tlo[:, None] > hi[None, :, None])).any(-1)
-    finite = torch.isfinite(anchors).all(-1)[None, :, None]
-    t_finite = torch.isfinite(rows[..., :8]).all(-1)[:, None]
+    finite = (anchors.abs() < SKIP_LIMIT).all(-1)[None, :, None]
+    t_finite = ((rows[..., :8].abs() < SKIP_LIMIT).all(-1)
+                & kmatch.convex_left(rows[..., :8]))[:, None]
     return finite & t_finite & apart
 
 

@@ -185,6 +185,7 @@ def test_port_never_imports_jax():
             'import odtk_tpu_torch.profile_infer\n'
             'import odtk_tpu_torch.profile_engine\n'
             'import odtk_tpu_torch.profile_stem\n'
+            'import odtk_tpu_torch.profile_kernels\n'
             'import odtk_tpu_torch.profile_train, odtk_tpu_torch.train\n'
             'import odtk_tpu_torch.data, odtk_tpu_torch.utils\n'
             'import odtk_tpu_torch.export, odtk_tpu_torch.quantize\n'
@@ -205,6 +206,32 @@ def test_profile_stem_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(SystemExit, match='no CUDA device'):
         profile_stem.main([])
+
+
+def test_profile_kernels_needs_a_card(monkeypatch):
+    """Rows 6 and 8's timing script measures on a card or fails."""
+    from odtk_tpu_torch import profile_kernels
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='no CUDA device'):
+        profile_kernels.main([])
+
+
+def test_profile_kernels_counts_vector_loops_and_p3_pairs():
+    """The SASS count takes each backward branch's span that holds 16-byte
+    loads, NOPs left out; the row 8 case is P3 of the 896 x 1152 canvas
+    (435,456 anchors) against 7 valid rows of 128, whose pair counts the
+    script prints beside the bound."""
+    from odtk_tpu_torch import profile_kernels as pk
+    sass = [(0x10, 'MOV R1, R2'), (0x20, 'LDG.E.128.CONSTANT R4, [R2]'),
+            (0x30, 'FFMA R5, R4, R4, R5'), (0x40, 'NOP'),
+            (0x50, '@P0 BRA 0x20'), (0x60, 'LDG.E R4, [R2]'),
+            (0x70, 'BRA 0x60'), (0x80, 'EXIT')]
+    assert pk.vector_loops(sass) == [(3, 1)]
+    anchors, clips, valid = pk.p3_match_case('cpu')
+    assert anchors.shape == (435456, 8) and clips.shape == (128, 8)
+    assert valid.sum() == 7 and valid[:7].all()
+    every, overlap, widened = pk.match_pairs(anchors, clips, valid)
+    assert every == 435456 * 7 and 0 < overlap <= widened < every // 10
 
 
 @pytest.mark.parametrize('name, fam', [
