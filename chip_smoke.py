@@ -9,9 +9,10 @@ source, in parallel), drives the port's main paths through its CLI
 classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
 6 x 27; random weights from a seed, synthetic COCO JPEGs from
 ``tests/synth.py``, resize 800 / max 1333, bf16): train, infer, and
-export with infer on the engines, axis-aligned and rotated. It holds
-each kernel against its plain PyTorch version at the shapes those paths
-give it:
+export with infer on the engines, axis-aligned and rotated; then the
+same for ResNet34C4, MobileNetV2FPN and ResNet50FPN + MobileNetV2FPN
+in one model. It holds each kernel against its plain PyTorch version at
+the shapes those paths give it, and prints each phase's wall seconds:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
@@ -91,7 +92,29 @@ give it:
  17. rotated-train-reference: one fp32 rotated SGD step on the card vs
      the CPU at 2 x 256 x 256, with the tolerances of phase 10;
  18. rotated-export: phase 11 for the rotated checkpoint, with a 99.9
-     percentile calibration as well, and the rotated NMS's counter.
+     percentile calibration as well, and the rotated NMS's counter;
+ 19. c4: ``odtk-tpu-torch train --backbone ResNet34C4`` for 10 steps at
+     batch 8 (a step: the stem's argmax forward and backward, the loss's
+     forward and backward once each, for its one level at stride 16);
+     phase 5 on its first step's level; ``infer`` on the checkpoint; NMS
+     on its candidates (phase 8's equality, also with a NaN score); a
+     bf16 engine and ``infer`` on it (phase 11's checks);
+ 20. mobilenet: phase 19 for MobileNetV2FPN (five levels), with an INT8
+     absmax engine held to the bf16 one (``int8_check``); no stem kernel
+     is launched anywhere, and the engines hold no stem operator;
+ 21. mobilenet-reference: phase 10 for the MobileNetV2FPN checkpoint,
+     and its 17 depthwise convolutions' weight gradients card vs CPU
+     (``depthwise_gradient_phase``);
+ 22. multi: phase 19 for ResNet50FPN + MobileNetV2FPN in one model, 3
+     steps: 10 levels, the loss's forward and backward launched twice a
+     step (a launch takes up to eight levels);
+ 23. match-l10: the matcher on the first rotated step's five levels
+     given twice (10 levels, two launches), every level bit-equal to
+     phase 13's launch and under its rule against the plain stream;
+ 24. multi-rotated-train: ``train --rotated-bbox`` of the two-backbone
+     model for 2 steps (the matcher and the loss twice a step each way);
+ 25. multi-rotated-loss: phase 5 at D = 6 on its first step's 10 levels
+     (an eight-level and a two-level launch each way).
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -101,6 +124,7 @@ and bound; before it, the engines' ms per batch beside the card's name
 and power limit; the last line is the device summary.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -466,20 +490,25 @@ def make_data(root, n_images, rotated=False, max_boxes=3):
     return img_dir, ann
 
 
-def train_phase(root, img_dir, ann, rotated=False):
-    """``odtk-tpu-torch train`` (``--rotated-bbox`` when rotated):
-    ResNet50FPN, 80 classes, bf16, b=8, resize 800 / max 1333, from a
-    seeded random init. Returns the checkpoint, the launch counts of the
-    run, the loss inputs of its first step (for the loss phases), the
-    assignment inputs of its first step (for the rotated-match phase),
-    the median ms per step and the losses."""
+def train_phase(root, img_dir, ann, rotated=False,
+                backbones=('ResNet50FPN',), steps=TRAIN_STEPS, label=None):
+    """``odtk-tpu-torch train`` (``--rotated-bbox`` when rotated) of
+    ``backbones`` (ResNet50FPN, or another model of ``other_phases``), 80
+    classes, bf16, b=8, resize 800 / max 1333, ``steps`` steps from a
+    seeded random init; each kernel launched ``expected_launches`` times.
+    Returns the checkpoint, the launch counts of the run, the loss inputs
+    of its first step (for the loss phases), the assignment inputs of its
+    first step (for the rotated-match phases), the median ms per step and
+    the losses."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch import model as model_mod
     from odtk_tpu_torch.ops import assign
     from odtk_tpu_torch.ops.kernels import loss, match_rotated, stem
 
     kind = 'rotated' if rotated else 'axis'
-    ckpt = os.path.join(root, f'retinanet_r50fpn_{kind}_trained.pth')
+    label = label or ('rotated-train' if rotated else 'train')
+    ckpt = os.path.join(root, f'retinanet_{"_".join(backbones)}_{kind}_'
+                              'trained.pth')
     seen, snaps = [], []
 
     def capture(cls_heads, box_heads, cls_ts, box_ts, depths, classes,
@@ -513,11 +542,11 @@ def train_phase(root, img_dir, ann, rotated=False):
     try:
         result = cli.main([
             'train', ckpt, '--images', img_dir, '--annotations', ann,
-            '--backbone', 'ResNet50FPN', '--classes', '80',
+            '--backbone', *backbones, '--classes', '80',
             '--batch', str(TRAIN_BATCH), '--resize', '800',
             '--max-size', '1333', '--jitter', '800', '800',
-            '--iters', str(TRAIN_STEPS), '--warmup', str(WARMUP),
-            '--milestones', str(TRAIN_STEPS), '--lr', str(TRAIN_LR)]
+            '--iters', str(steps), '--warmup', str(WARMUP),
+            '--milestones', str(steps), '--lr', str(TRAIN_LR)]
             + (['--rotated-bbox', '--clip-grads', str(ROTATED_CLIP_GRADS)]
                if rotated else []))
     finally:
@@ -525,24 +554,47 @@ def train_phase(root, img_dir, ann, rotated=False):
         model_mod.snap_to_anchors_rotated_levels = \
             assign.snap_to_anchors_rotated_levels
     launches = {name: k.launches for name, k in counted.items()}
-    expect = {'det_loss': TRAIN_STEPS, 'det_loss_bwd': TRAIN_STEPS,
-              'stem_idx': TRAIN_STEPS,
-              'stem_bwd': TRAIN_STEPS, 'stem_primal': 0,
-              'match_rotated': TRAIN_STEPS if rotated else 0,
-              'rotated_best_match': 0}
+    expect = expected_launches(backbones, rotated, steps)
     if launches != expect:
-        raise AssertionError(f'{kind} train launches {launches}, expected '
+        raise AssertionError(f'{label} launches {launches}, expected '
                              f'{expect}')
     losses = result['losses']
-    if len(losses) != TRAIN_STEPS or not all(
+    if len(losses) != steps or not all(
             math.isfinite(c) and math.isfinite(b) for _, c, b in losses):
-        raise AssertionError(f'{kind} train losses not finite: {losses}')
-    ms = statistics.median(result['step_ms'][3:])
-    print(f'{"rotated-" if rotated else ""}train: {TRAIN_STEPS} steps, '
-          f'b={TRAIN_BATCH} bf16, launches {launches}, {ms:.3f} ms/step '
-          f'(median after 3), loss first {losses[0]} last {losses[-1]}',
-          flush=True)
+        raise AssertionError(f'{label} losses not finite: {losses}')
+    ms = statistics.median(result['step_ms'][min(3, steps - 1):])
+    print(f'{label}: {" + ".join(backbones)}, {len(seen)} levels, {steps} '
+          f'steps, b={TRAIN_BATCH} bf16, launches {launches}, {ms:.3f} '
+          f'ms/step (median after {min(3, steps - 1)}), loss first '
+          f'{losses[0]} last {losses[-1]}', flush=True)
     return ckpt, launches, seen, snaps, ms, losses
+
+
+# levels and ResNet stems (the stem kernels' users) of each backbone the
+# smoke trains: a C4 net has one level, an FPN five; MobileNetV2FPN's
+# stem is a plain ConvBNReLU6
+BACKBONE_LEVELS = {'ResNet50FPN': 5, 'ResNet34C4': 1, 'MobileNetV2FPN': 5}
+BACKBONE_STEMS = {'ResNet50FPN': 1, 'ResNet34C4': 1, 'MobileNetV2FPN': 0}
+
+
+def expected_launches(backbones, rotated, steps):
+    """Each training kernel's launches over ``steps`` steps: the loss's
+    forward and backward (and, rotated, the matcher) once a step for
+    every group of levels a launch takes (``_build.level_groups`` at
+    each kernel's ``MAX_LEVELS``); the stem's argmax forward and routing
+    backward once a step for every ResNet stem, its primal kernel never;
+    the unbatched matcher never."""
+    from odtk_tpu_torch.ops.kernels import _build, loss, match_rotated
+
+    levels = sum(BACKBONE_LEVELS[b] for b in backbones)
+    groups = len(_build.level_groups(levels, loss.MAX_LEVELS))
+    matches = len(_build.level_groups(levels, match_rotated.MAX_LEVELS))
+    stems = sum(BACKBONE_STEMS[b] for b in backbones)
+    return {'det_loss': groups * steps, 'det_loss_bwd': groups * steps,
+            'stem_idx': stems * steps, 'stem_bwd': stems * steps,
+            'stem_primal': 0,
+            'match_rotated': matches * steps if rotated else 0,
+            'rotated_best_match': 0}
 
 
 # row 5's gradients against autograd of the plain version in float64, as
@@ -552,9 +604,25 @@ def train_phase(root, img_dir, ann, rotated=False):
 LOSS_DX_ATOL = 1e-12
 
 
+def _loss_fwd_launches(cls_heads, box_heads, cls_ts, box_ts, depths,
+                       classes):
+    """The forward kernel alone over all levels, a launch for each group
+    of ``_build.level_groups``: fp32 [L, 2]."""
+    from odtk_tpu_torch.ops.kernels import _build, loss
+
+    sums = []
+    for cut in _build.level_groups(len(cls_heads), loss.MAX_LEVELS):
+        ops, geo = loss.kernel_operands(cls_heads[cut], box_heads[cut],
+                                        cls_ts[cut], box_ts[cut],
+                                        depths[cut], classes)
+        sums.append(loss.detection_loss_fwd_kernel(ops, geo, classes))
+    return torch.cat(sums)
+
+
 def loss_phase(levels, label='loss'):
-    """Row 5 on the first train step's five levels (bf16 heads; D = 4, or
-    6 for the rotated model): the forward kernel alone, and forward +
+    """Row 5 on the first train step's levels (bf16 heads; five for
+    ResNet50FPN, D = 4, or 6 for the rotated model; one for a C4 model,
+    10 for two FPN backbones): the forward kernel alone, and forward +
     backward as ``Model.loss_fn`` runs them (``torch.autograd.grad`` of
     its loss, the level sums over the foreground count fg, to the heads),
     against the plain version a level at a time. Sums: relative 1e-4
@@ -562,15 +630,14 @@ def loss_phase(levels, label='loss'):
     against the plain version's autograd in float64 (an image at a time),
     within one bf16 ulp of it rounded to bf16, plus LOSS_DX_ATOL / fg.
     Times are per step."""
-    from odtk_tpu_torch.ops.kernels import loss
+    from odtk_tpu_torch.ops.kernels import _build, loss
 
     cls_heads, box_heads, cls_ts, box_ts, depths, classes = (
         list(t) for t in zip(*levels))
     classes = classes[0]
     fg = sum(max(int((d > 0).sum()), 1) for d in depths)
-    ops, geo = loss.kernel_operands(cls_heads, box_heads, cls_ts, box_ts,
-                                    depths, classes)
-    sums = loss.detection_loss_fwd_kernel(ops, geo, classes)
+    sums = _loss_fwd_launches(cls_heads, box_heads, cls_ts, box_ts, depths,
+                              classes)
 
     def kernel_loss(heads):
         s = loss.detection_loss_sums_levels(
@@ -645,9 +712,8 @@ def loss_phase(levels, label='loss'):
 
     row = dict(
         max_abs_err=err,
-        ms=_median_ms(lambda: loss.detection_loss_fwd_kernel(
-            *loss.kernel_operands(cls_heads, box_heads, cls_ts, box_ts,
-                                  depths, classes), classes)),
+        ms=_median_ms(lambda: _loss_fwd_launches(
+            cls_heads, box_heads, cls_ts, box_ts, depths, classes)),
         plain_ms=_median_ms(plain_forward),
         ms_fwd_bwd=_median_ms(lambda: grads(kernel_loss)),
         plain_ms_fwd_bwd=_median_ms(lambda: grads(plain_loss)))
@@ -665,10 +731,13 @@ def loss_phase(levels, label='loss'):
     read = logits * s + sum(d.numel() for d in depths) * 8 + fg_boxes * (
         s + 4)
     row['bound'] = _bound(read + 8 * len(levels), 25 * logits + 12 * fg_boxes)
+    row.update(levels=len(levels), logits=logits)
     row['bound_fwd_bwd'] = _bound(read + 8 * len(levels)
                                   + (logits + boxes) * s,
                                   58 * logits + 16 * fg_boxes)
-    print(f'{label}: {len(levels)} levels, forward kernel {row["ms"]:.4f} ms '
+    launches = len(_build.level_groups(len(levels), loss.MAX_LEVELS))
+    print(f'{label}: {len(levels)} levels, {logits} logits, {launches} '
+          f'launch(es) each way, forward kernel {row["ms"]:.4f} ms '
           f'(plain {row["plain_ms"]:.4f}, bound {row["bound"][0]:.4f}); '
           f'forward + backward {row["ms_fwd_bwd"]:.4f} ms (plain '
           f'{row["plain_ms_fwd_bwd"]:.4f}, bound '
@@ -676,17 +745,21 @@ def loss_phase(levels, label='loss'):
     return row
 
 
-def e2e_phase(root, ckpt, img_dir, ann, rotated=False):
+def e2e_phase(root, ckpt, img_dir, ann, rotated=False, stems=1,
+              label=None):
     """The ``infer`` CLI on the synthetic set with the trained checkpoint
-    (a rotated model by the checkpoint's angles). Returns the launch
-    counts of the run, the NMS inputs of its first batch (for the NMS
-    phases) and its median ms per batch after the first."""
+    (a rotated model by the checkpoint's angles): NMS launched once a
+    batch, the primal stem ``stems`` times a batch (0 for
+    MobileNetV2FPN). Returns the launch counts of the run, the NMS inputs
+    of its first batch (for the NMS phases) and its median ms per batch
+    after the first."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch import model as model_mod
     from odtk_tpu_torch.ops.kernels import nms, nms_rotated, stem
 
     kind = 'rotated' if rotated else 'axis'
-    det = os.path.join(root, f'detections_{kind}.json')
+    label = label or ('rotated-infer' if rotated else 'e2e')
+    det = os.path.join(root, f'detections_{kind}_{label}.json')
     fn = nms_rotated.nms_rotated if rotated else nms.nms
     name = 'nms_rotated' if rotated else 'nms'
     seen = []
@@ -710,14 +783,14 @@ def e2e_phase(root, ckpt, img_dir, ann, rotated=False):
     launches = {n: k.launches for n, k in counted.items()}
     batches = len(result['batch_ms'])
     other = 'nms' if rotated else 'nms_rotated'
-    if (launches[name] != batches or launches['stem'] != batches
+    if (launches[name] != batches or launches['stem'] != stems * batches
             or launches[other] != 0):
-        raise AssertionError(f'{kind} e2e launches {launches} over '
+        raise AssertionError(f'{label} launches {launches} over '
                              f'{batches} batches')
     with open(det) as f:
         dets = json.load(f)['annotations']
     if not dets:
-        raise AssertionError(f'no {kind} detections')
+        raise AssertionError(f'{label}: no detections')
     for d in dets:
         values = d['bbox'] + [d['score']]
         if rotated:
@@ -727,9 +800,8 @@ def e2e_phase(root, ckpt, img_dir, ann, rotated=False):
         if not all(math.isfinite(v) for v in values):
             raise AssertionError(f'non-finite detection {d}')
     ms = statistics.median(result['batch_ms'][1:])
-    print(f'{"rotated-infer" if rotated else "e2e"}: {len(dets)} '
-          f'detections, launches {launches}, {ms:.3f} ms/batch (b=2, bf16)',
-          flush=True)
+    print(f'{label}: {len(dets)} detections, launches {launches}, '
+          f'{ms:.3f} ms/batch (b=2, bf16)', flush=True)
     return launches, seen, ms
 
 
@@ -781,6 +853,32 @@ def reference_errors(ckpt, devices, rotated=False):
     lr = 0.01
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    result = []
+    for dev in devices:
+        model, _ = Model.load(ckpt, device=dev)
+        params = dict(model.module.named_parameters())
+        opt = train.make_optimizer(params.values(), lr)
+        step = train.make_train_step(model, opt, feed='u8')
+        cl, bl = step(lr, *(t.to(dev) for t in reference_batch(rotated)))
+        result.append(((cl.item(), bl.item()),
+                       {k: lr * opt.state[p]['momentum_buffer'].double().cpu()
+                        for k, p in params.items()}))
+    ((c0, b0), u0), ((c1, b1), u1) = result
+    per = {k: ((u1[k] - u0[k]).norm() / u0[k].norm().clamp(min=1e-30))
+           .item() for k in u0}
+    worst = max(per, key=per.get)
+    return dict(
+        loss=max(abs(c1 - c0) / abs(c0), abs(b1 - b0) / abs(b0)),
+        total=(sum(((u1[k] - u0[k]) ** 2).sum() for k in u0)
+               / sum((u0[k] ** 2).sum() for k in u0)).sqrt().item(),
+        median=statistics.median(per.values()), worst=worst,
+        worst_err=per[worst])
+
+
+def reference_batch(rotated=False):
+    """The reference phases' u8 batch: (images [2, 256, 256, 3] u8,
+    targets [2, 8, 5] (x, y, w, h, class), or [2, 8, 6] with theta for a
+    rotated model, colours [2, 3, 4], valid sizes [2, 2])."""
     rng = np.random.RandomState(5)
     u8 = torch.from_numpy(rng.randint(0, 256, (2, 256, 256, 3), np.uint8))
     colors = torch.zeros(2, 3, 4)
@@ -798,30 +896,10 @@ def reference_errors(ckpt, devices, rotated=False):
                              targets[..., 4:]], -1)
         targets[0, :3, 4] = theta[0]
         targets[1, :2, 4] = theta[1, :2]
-    result = []
-    for dev in devices:
-        model, _ = Model.load(ckpt, device=dev)
-        params = dict(model.module.named_parameters())
-        opt = train.make_optimizer(params.values(), lr)
-        step = train.make_train_step(model, opt, feed='u8')
-        cl, bl = step(lr, *(t.to(dev) for t in (u8, targets, colors,
-                                                sizes)))
-        result.append(((cl.item(), bl.item()),
-                       {k: lr * opt.state[p]['momentum_buffer'].double().cpu()
-                        for k, p in params.items()}))
-    ((c0, b0), u0), ((c1, b1), u1) = result
-    per = {k: ((u1[k] - u0[k]).norm() / u0[k].norm().clamp(min=1e-30))
-           .item() for k in u0}
-    worst = max(per, key=per.get)
-    return dict(
-        loss=max(abs(c1 - c0) / abs(c0), abs(b1 - b0) / abs(b0)),
-        total=(sum(((u1[k] - u0[k]) ** 2).sum() for k in u0)
-               / sum((u0[k] ** 2).sum() for k in u0)).sqrt().item(),
-        median=statistics.median(per.values()), worst=worst,
-        worst_err=per[worst])
+    return u8, targets, colors, sizes
 
 
-def train_reference_phase(ckpt, device, rotated=False):
+def train_reference_phase(ckpt, device, rotated=False, name=None):
     """``reference_errors`` of the card against the CPU from the trained
     checkpoint. Losses within a relative 1e-4; the update in relative L2
     within 5e-3 over all parameters and for the median tensor (fp32
@@ -835,7 +913,8 @@ def train_reference_phase(ckpt, device, rotated=False):
     (``reference_spread.py`` measures the spread over seeded inits). A
     gradient path that is wrong or missing moves its tensors by order
     1."""
-    name = 'rotated-train-reference' if rotated else 'train-reference'
+    name = name or ('rotated-train-reference' if rotated
+                    else 'train-reference')
     e = reference_errors(ckpt, ('cpu', device), rotated)
     print(f'{name}: fp32 step card vs CPU, losses rel err {e["loss"]:.3g}; '
           f'parameter update rel L2 err over all {e["total"]:.3g}, median '
@@ -844,6 +923,46 @@ def train_reference_phase(ckpt, device, rotated=False):
     if (e['loss'] > 1e-4 or e['total'] > 5e-3 or e['median'] > 5e-3
             or e['worst_err'] > 5e-2):
         raise AssertionError(f'{name} card vs CPU out of bounds: {e}')
+
+
+def depthwise_gradient_phase(ckpt, device):
+    """The gradients of MobileNetV2FPN's 17 depthwise convolution weights
+    (PyTorch's grouped kernels on the card) from one fp32 loss on the
+    reference batch, card (TF32 off) vs CPU: relative L2 per tensor, the
+    median within 5e-3 and every tensor within 5e-2, phase 10's update
+    bounds. Phase 10's update of a MobileNetV2FPN from random weights is
+    mostly its weight decay (behind heads drawn at std 0.01 its backbone
+    gradients are far below 1e-4 x the weights), so it says little about
+    these convolutions; their gradients, each scaled by its own norm, do."""
+    from odtk_tpu_torch.model import Model
+    from odtk_tpu_torch.ops import apply_color_affine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    u8, targets, colors, sizes = reference_batch()
+    grads = []
+    for dev in ('cpu', device):
+        model, _ = Model.load(ckpt, device=dev)
+        names = [n for n, m in model.module.named_modules()
+                 if isinstance(m, torch.nn.Conv2d) and m.groups > 1]
+        weights = [model.module.get_submodule(n).weight for n in names]
+        images = apply_color_affine(u8.to(dev), colors.to(dev),
+                                    sizes.to(dev))
+        cl, bl = model.loss_fn(images, targets.to(dev))
+        grads.append([g.double().cpu() for g in torch.autograd.grad(
+            cl + bl, weights)])
+    per = {n: ((b - a).norm() / a.norm().clamp(min=1e-300)).item()
+           for n, a, b in zip(names, *grads)}
+    worst = max(per, key=per.get)
+    median = statistics.median(per.values())
+    norms = [g.norm().item() for g in grads[0]]
+    print(f'mobilenet-reference: {len(per)} depthwise weight gradients, card '
+          f'vs CPU rel L2 median {median:.3g}, largest {per[worst]:.3g} '
+          f'({worst}); gradient norms {min(norms):.3g}-{max(norms):.3g}',
+          flush=True)
+    if len(per) != 17 or median > 5e-3 or per[worst] > 5e-2:
+        raise AssertionError(f'mobilenet-reference depthwise gradients out '
+                             f'of bounds: {per}')
 
 
 def _bits_equal(got, want):
@@ -991,6 +1110,66 @@ def rotated_match_phase(snaps):
               f'{m_rows} ({int(d_args[2].sum())} valid): equal bit for bit',
               flush=True)
     return match_row, best_row
+
+
+def match_ten_phase(snaps):
+    """Row 7 past one launch: the first rotated step's five levels given
+    twice (the 10 levels of two FPN backbones) through
+    ``rotated_match_levels``: a launch for each group of up to
+    ``MAX_LEVELS``, every level bit-equal to the five-level launch's and
+    under phase 13's rule against the plain stream (equal IoU and slot
+    wherever the plain best IoU is > 0, <= 0 elsewhere); timed."""
+    from odtk_tpu_torch.ops import assign, iou_rotated
+    from odtk_tpu_torch.ops.kernels import _build
+    from odtk_tpu_torch.ops.kernels import match_rotated as km
+
+    targets, sizes, strides, tables, _, ious = snaps
+    _, valid, _, boxes_rot = assign.rotated_targets(targets.float())
+    quads = [assign.rotated_level_anchors(size, stride, table,
+                                          targets.device)[1]
+             for size, stride, table in zip(sizes, strides, tables)]
+    args = iou_rotated.match_inputs_levels(quads * 2, boxes_rot, valid,
+                                           ious[0])
+    subj, rows, n_act = args
+    five = km.rotated_match_levels(subj[:5], rows[:5], n_act[:5])
+    before = km.rotated_match_levels.launches
+    got = km.rotated_match_levels(*args)
+    torch.cuda.synchronize()
+    launches = km.rotated_match_levels.launches - before
+    if launches != len(_build.level_groups(len(subj), km.MAX_LEVELS)):
+        raise AssertionError(f'match-l10: {launches} launches for '
+                             f'{len(subj)} levels')
+    want = km.rotated_match_levels_plain(subj[:5], rows[:5], n_act[:5])
+    nbytes = rows.numel() * 4 + n_act.numel() * 4
+    pairs = 0
+    for level, (g_iou, g_slot) in enumerate(got):
+        f_iou, f_slot = five[level % 5]
+        w_iou, w_slot = want[level % 5]
+        hit = w_iou > 0
+        if not (torch.equal(g_iou, f_iou) and torch.equal(g_slot, f_slot)):
+            raise AssertionError(f'match-l10: level {level} differs from '
+                                 'the five-level launch')
+        if not (torch.equal(g_iou[hit], w_iou[hit])
+                and torch.equal(g_slot[hit], w_slot[hit])
+                and bool((g_iou[~hit] <= 0).all())):
+            raise AssertionError(f'match-l10: kernel != plain at level '
+                                 f'{level}')
+        b, n = w_iou.shape
+        nbytes += subj[level].numel() * 4 + b * n * 8
+        pairs += _aabb_pairs(subj[level], rows[level], n_act[level])
+    row = dict(max_abs_err=0.0,
+               ms=_median_ms(lambda: km.rotated_match_levels(*args)),
+               plain_ms=_median_ms(
+                   lambda: km.rotated_match_levels_plain(*args), runs=3,
+                   warmup=1),
+               bound=_bound(nbytes, pairs * CLIP_OPS), levels=len(subj),
+               pairs=pairs)
+    print(f'match-l10: {len(subj)} levels in {launches} launches, each '
+          'level bit-equal to the five-level launch and held to the plain '
+          f'stream; kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} '
+          f'ms, bound {row["bound"][0]:.4f} ms; AABB pairs {pairs}',
+          flush=True)
+    return row
 
 
 def synthetic_rotated_nms_case(b=2, n=5000, seed=0):
@@ -1207,21 +1386,23 @@ ENGINE_SIZE = ('800', '1333')        # rounded up to 896 x 1408 (stride 128)
 ENGINE_THRESHOLD = 0.001
 
 
-def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
+def export_phase(root, ckpt, img_dir, ann, device, rotated=False,
+                 names=None, stems=1, label=None):
     """``odtk-tpu-torch export`` of the trained checkpoint: bf16 with batch
     profiles 1 and 2, fp32, and INT8 calibrated on the synthetic JPEGs
-    with absmax and with entropy (and, rotated, a 99.9 percentile), then
-    ``odtk-tpu-torch infer`` on each engine (batch 2). Checks: non-empty,
-    finite detection JSONs; the NMS (rotated NMS) and stem counters rose
-    by one per batch during each engine's run; the bf16 engine's
+    with absmax and with entropy (and, rotated, a 99.9 percentile), or
+    the flavours ``names`` lists, then ``odtk-tpu-torch infer`` on each engine
+    (batch 2). Checks: non-empty, finite detection JSONs; the NMS
+    (rotated NMS) counter rose by one per batch during each engine's run,
+    the stem's by ``stems`` (0 for MobileNetV2FPN); the bf16 engine's
     detections equal the checkpoint path's on the same f32 batches at the
     engine geometry (scores within 1e-3, the same top-1 class and box to
     0.5 px per image); on the first batch, the stem and NMS kernels equal
     their plain versions on the inputs the bf16 and fp32 engines give
     them; each int8 engine near the bf16 one on every batch
-    (``int8_check``); each int8 package under the fp32 one / 2.5.
-    Returns ({engine: ms per batch}, the stem kernel's launches over the
-    engines' infer runs)."""
+    (``int8_check``); each int8 package under the fp32 one / 2.5 where
+    both are exported. Returns ({engine: ms per batch}, the stem kernel's
+    launches over the engines' infer runs)."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch.data import DataIterator, RotatedDataIterator
     from odtk_tpu_torch.export import Engine
@@ -1229,7 +1410,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
     from odtk_tpu_torch.ops.kernels import nms, nms_rotated, stem
 
     kind = 'rotated' if rotated else 'axis'
-    label = 'rotated-export' if rotated else 'export'
+    label = label or ('rotated-export' if rotated else 'export')
     nms_fn = nms_rotated.nms_rotated if rotated else nms.nms
     other = nms.nms if rotated else nms_rotated.nms_rotated
     calib = ['--int8', '--calibration-images', img_dir,
@@ -1245,11 +1426,13 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
         flavours['int8_p99.9'] = calib + ['--calibration-percentile', '99.9',
                                           '--dynamic-batch-opts', '2', '2',
                                           '2']
+    if names is not None:
+        flavours = {name: flavours[name] for name in names}
     paths, sizes, ms = {}, {}, {}
     stem_launches = 0
     for name, flags in flavours.items():
-        path = os.path.join(root, f'{kind}_{name}.engine')
-        table = os.path.join(root, f'{kind}_{name}.calib.json')
+        path = os.path.join(root, f'{kind}_{label}_{name}.engine')
+        table = os.path.join(root, f'{kind}_{label}_{name}.calib.json')
         start = time.perf_counter()
         cli.main(['export', ckpt, path, '--size', *ENGINE_SIZE,
                   '--threshold', str(ENGINE_THRESHOLD),
@@ -1257,7 +1440,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
         export_s = time.perf_counter() - start
         paths[name], sizes[name] = path, os.path.getsize(path)
 
-        det = os.path.join(root, f'detections_{kind}_{name}.json')
+        det = os.path.join(root, f'detections_{kind}_{label}_{name}.json')
         for k in (nms_fn, other, stem.bn_relu_pool):
             k.launches = 0
         result = cli.main(['infer', path, '--images', img_dir,
@@ -1266,7 +1449,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
         batches = len(result['batch_ms'])
         launches = (nms_fn.launches, stem.bn_relu_pool.launches,
                     other.launches)
-        if launches != (batches, batches, 0):
+        if launches != (batches, stems * batches, 0):
             raise AssertionError(f'{label} {name}: launches (nms, stem, '
                                  f'other nms) {launches} over {batches} '
                                  'batches: the engine did not run the '
@@ -1287,7 +1470,8 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
               f'{ms[name]:.3f} ms/batch (b=2, median after the first), '
               f'kernel launches (nms, stem) {launches[:2]}', flush=True)
     for name in sizes:
-        if name.startswith('int8') and sizes[name] >= sizes['fp32'] / 2.5:
+        if (name.startswith('int8') and 'fp32' in sizes
+                and sizes[name] >= sizes['fp32'] / 2.5):
             raise AssertionError(f'{label}: {name} package {sizes[name]} '
                                  f'bytes, not under fp32 {sizes["fp32"]} / '
                                  '2.5')
@@ -1307,8 +1491,9 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False):
         x = torch.from_numpy(data).to(device)
         if not compared:
             for name in ('bf16', 'fp32'):
-                engine_kernels_check(f'{label} {name}', engines[name], x,
-                                     rotated)
+                if name in engines:
+                    engine_kernels_check(f'{label} {name}', engines[name],
+                                         x, rotated, stems)
         got = engine(x)
         want = model.inference_fn(x)
         for name in int8_err:
@@ -1358,20 +1543,30 @@ class _OperatorInputs(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def engine_kernels_check(label, engine, x, rotated):
+def engine_kernels_check(label, engine, x, rotated, stems=1):
     """The stem and NMS (rotated NMS) kernels on the tensors the engine
     itself gives them on batch x (its conv1 output at the engine geometry,
-    the decode candidates of its heads), each equal to its plain
-    version."""
+    the decode candidates of its heads), each equal to its plain version;
+    with ``stems`` 0 (MobileNetV2FPN), the stem operator must be absent
+    from the engine's run."""
     from odtk_tpu_torch.ops.kernels import nms, nms_rotated, stem
 
     with _OperatorInputs() as inputs:
         engine(x)
-    y, scale, shift = inputs.seen['odtk::bn_relu_pool']
-    if not torch.equal(stem.bn_relu_pool(y, scale, shift),
-                       stem.bn_relu_pool_plain(y, scale, shift)):
-        raise AssertionError(f'{label}: stem kernel != plain on the '
-                             f'engine\'s {list(y.shape)} {y.dtype} input')
+    if not stems:
+        if 'odtk::bn_relu_pool' in inputs.seen:
+            raise AssertionError(f'{label}: the engine ran the stem '
+                                 'operator, the model has no ResNet stem')
+        stem_text = 'no stem operator'
+    else:
+        y, scale, shift = inputs.seen['odtk::bn_relu_pool']
+        if not torch.equal(stem.bn_relu_pool(y, scale, shift),
+                           stem.bn_relu_pool_plain(y, scale, shift)):
+            raise AssertionError(f'{label}: stem kernel != plain on the '
+                                 f'engine\'s {list(y.shape)} {y.dtype} '
+                                 'input')
+        stem_text = (f'the stem kernel on the engine\'s {list(y.shape)} '
+                     f'{str(y.dtype)[6:]} conv1 output')
     op, fn, plain = (('odtk::nms_rotated', nms_rotated.nms_rotated,
                       nms_rotated.nms_rotated_plain) if rotated else
                      ('odtk::nms', nms.nms, nms.nms_plain))
@@ -1381,8 +1576,7 @@ def engine_kernels_check(label, engine, x, rotated):
         raise AssertionError(f'{label}: {op} kernel != plain on the '
                              f'engine\'s candidates: max abs diff '
                              f'{_max_abs(got, want)}')
-    print(f'{label}: the stem kernel on the engine\'s {list(y.shape)} '
-          f'{str(y.dtype)[6:]} conv1 output and {op[6:]} on its '
+    print(f'{label}: {stem_text} and {op[6:]} on its '
           f'{list(args[1].shape)} candidates ({int((got[0] > 0).sum())} '
           'kept) equal their plain versions', flush=True)
 
@@ -1415,6 +1609,61 @@ def int8_check(label, got, ref):
     return err, gap
 
 
+# the other backbones' models: (backbones, train steps, engines); C4
+# has one level, MobileNetV2FPN no stem kernel, the pair 10 levels
+OTHER_MODELS = {
+    'c4': (('ResNet34C4',), 10, ('bf16',)),
+    'mobilenet': (('MobileNetV2FPN',), 10, ('bf16', 'int8_absmax')),
+    'multi': (('ResNet50FPN', 'MobileNetV2FPN'), 3, ('bf16',)),
+}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Prints the wall seconds the phase took."""
+    start = time.perf_counter()
+    yield
+    print(f'phase {name}: {time.perf_counter() - start:.1f} s wall',
+          flush=True)
+
+
+def other_phases(name, root, img_dir, ann, device):
+    """One model of OTHER_MODELS through the port's entry points:
+    ``train`` (the launches of ``expected_launches``), row 5 on its
+    first step's levels (``loss_phase``), ``infer`` on the checkpoint,
+    NMS on its first batch's candidates (and with a NaN score), then its
+    engines and ``infer`` on each (``export_phase``: the stem operator
+    absent from a MobileNetV2FPN engine); for MobileNetV2FPN also one
+    fp32 SGD step on the card vs the CPU, phase 10's bounds, and its
+    depthwise weight gradients (``depthwise_gradient_phase``). Returns
+    the numbers the kernel rows and the summary need."""
+    backbones, steps, engines = OTHER_MODELS[name]
+    stems = sum(BACKBONE_STEMS[b] for b in backbones)
+    out = {}
+    with phase(f'{name}-train'):
+        ckpt, out['train'], levels, _, out['step_ms'], _ = train_phase(
+            root, img_dir, ann, backbones=backbones, steps=steps,
+            label=f'{name}-train')
+    with phase(f'{name}-loss'):
+        out['loss'] = loss_phase(levels, f'{name}-loss')
+    del levels
+    with phase(f'{name}-infer'):
+        out['infer'], cands, out['batch_ms'] = e2e_phase(
+            root, ckpt, img_dir, ann, stems=stems, label=f'{name}-infer')
+    with phase(f'{name}-nms'):
+        nms_phase({f'{name}-decode': cands,
+                   f'{name}-nan': with_nan_score(*cands)}, timed=())
+    if name == 'mobilenet':
+        with phase('mobilenet-reference'):
+            train_reference_phase(ckpt, device, name='mobilenet-reference')
+            depthwise_gradient_phase(ckpt, device)
+    with phase(f'{name}-export'):
+        out['engine_ms'], out['engine_stem'] = export_phase(
+            root, ckpt, img_dir, ann, device, names=engines, stems=stems,
+            label=f'{name}-export')
+    return out
+
+
 def _times(row):
     return dict(ms=row['ms'], plain_ms=row['plain_ms'],
                 bound_ms=row['bound'][0])
@@ -1426,7 +1675,8 @@ def _row(name, source, replaces, launches, row):
                launches=launches, max_abs_err=row['max_abs_err'],
                ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
-    out.update({k: row[k] for k in ('engine_shape', 'fp32') if k in row})
+    out.update({k: row[k] for k in ('engine_shape', 'fp32', 'levels',
+                                    'logits') if k in row})
     if 'ms_fwd_bwd' in row:     # row 5: the forward alone, and with its
         out.update(              # backward kernel as autograd runs them
             launches_bwd=row['launches_bwd'], ms_fwd_bwd=row['ms_fwd_bwd'],
@@ -1446,58 +1696,92 @@ def main():
     smi = card()
     print(f'card: {torch.cuda.get_device_name(0)} ({smi}), torch '
           f'{torch.__version__}, CUDA {torch.version.cuda}', flush=True)
-    print(f'kernels: built {os.path.relpath(_build.build(), ROOT)}',
-          flush=True)
+    with phase('build'):
+        print(f'kernels: built {os.path.relpath(_build.build(), ROOT)}',
+              flush=True)
 
-    stem_rows = stem_phase(device)
-    fwd_rows, bwd_rows = stem_train_phase(device)
+    with phase('stem'):
+        stem_rows = stem_phase(device)
+    with phase('stem-train'):
+        fwd_rows, bwd_rows = stem_train_phase(device)
     with tempfile.TemporaryDirectory(prefix='odtk_smoke_') as root:
         img_dir, ann = make_data(root, n_images=32)
-        ckpt, train_launches, levels, _, step_ms, _ = train_phase(
-            root, img_dir, ann)
-        loss_row = loss_phase(levels)
-        focal_fwd, focal_bwd = focal_phase(levels)
+        with phase('train'):
+            ckpt, train_launches, levels, _, step_ms, _ = train_phase(
+                root, img_dir, ann)
+        with phase('loss'):
+            loss_row = loss_phase(levels)
+        with phase('focal-sum'):
+            focal_fwd, focal_bwd = focal_phase(levels)
         del levels
-        infer_launches, cands, batch_ms = e2e_phase(root, ckpt, img_dir,
-                                                    ann)
-        nms_rows = nms_phase({'decode': cands,
-                              'synthetic': [t.to(device) for t in
-                                            synthetic_nms_case()],
-                              'nan': with_nan_score(*cands)})
-        reference_phase(ckpt, device)
-        train_reference_phase(ckpt, device)
-        engine_ms, engine_stem = export_phase(root, ckpt, img_dir, ann,
-                                              device)
+        with phase('e2e'):
+            infer_launches, cands, batch_ms = e2e_phase(root, ckpt, img_dir,
+                                                        ann)
+        with phase('nms'):
+            nms_rows = nms_phase({'decode': cands,
+                                  'synthetic': [t.to(device) for t in
+                                                synthetic_nms_case()],
+                                  'nan': with_nan_score(*cands)})
+        with phase('reference'):
+            reference_phase(ckpt, device)
+        with phase('train-reference'):
+            train_reference_phase(ckpt, device)
+        with phase('export'):
+            engine_ms, engine_stem = export_phase(root, ckpt, img_dir, ann,
+                                                  device)
+        other = {name: other_phases(name, root, img_dir, ann, device)
+                 for name in OTHER_MODELS}
 
         rot_root = os.path.join(root, 'rotated')
         rot_dir, rot_ann = make_data(rot_root, n_images=32, rotated=True,
                                      max_boxes=ROTATED_MAX_BOXES)
-        rot_ckpt, rot_launches, levels, snaps, rot_step_ms, _ = train_phase(
-            rot_root, rot_dir, rot_ann, rotated=True)
-        match_row, best_row = rotated_match_phase(snaps)
+        with phase('rotated-train'):
+            rot_ckpt, rot_launches, levels, snaps, rot_step_ms, _ = \
+                train_phase(rot_root, rot_dir, rot_ann, rotated=True)
+        with phase('rotated-match'):
+            match_row, best_row = rotated_match_phase(snaps)
+        with phase('match-l10'):
+            match_ten_row = match_ten_phase(snaps)
         del snaps
-        rot_loss_row = loss_phase(levels, 'rotated-loss')
+        with phase('rotated-loss'):
+            rot_loss_row = loss_phase(levels, 'rotated-loss')
         del levels
-        rot_infer_launches, cands, rot_batch_ms = e2e_phase(
-            rot_root, rot_ckpt, rot_dir, rot_ann, rotated=True)
-        rot_nms_rows = rotated_nms_phase(
-            {'decode': cands, 'synthetic': [
-                t.to(device) for t in synthetic_rotated_nms_case()],
-             'nan': with_nan_score(*cands)})
-        train_reference_phase(rot_ckpt, device, rotated=True)
-        rot_engine_ms, rot_engine_stem = export_phase(
-            rot_root, rot_ckpt, rot_dir, rot_ann, device, rotated=True)
+        with phase('multi-rotated-train'):
+            _, multi_rot_launches, levels, _, multi_rot_step_ms, _ = \
+                train_phase(rot_root, rot_dir, rot_ann, rotated=True,
+                            backbones=OTHER_MODELS['multi'][0], steps=2,
+                            label='multi-rotated-train')
+        with phase('multi-rotated-loss'):
+            multi_rot_loss_row = loss_phase(levels, 'multi-rotated-loss')
+        del levels
+        with phase('rotated-infer'):
+            rot_infer_launches, cands, rot_batch_ms = e2e_phase(
+                rot_root, rot_ckpt, rot_dir, rot_ann, rotated=True)
+        with phase('rotated-nms'):
+            rot_nms_rows = rotated_nms_phase(
+                {'decode': cands, 'synthetic': [
+                    t.to(device) for t in synthetic_rotated_nms_case()],
+                 'nan': with_nan_score(*cands)})
+        with phase('rotated-train-reference'):
+            train_reference_phase(rot_ckpt, device, rotated=True)
+        with phase('rotated-export'):
+            rot_engine_ms, rot_engine_stem = export_phase(
+                rot_root, rot_ckpt, rot_dir, rot_ann, device, rotated=True)
 
     csrc = 'odtk_tpu_torch/csrc/'
     pallas = 'odtk_tpu/ops/pallas/'
     bf16 = torch.bfloat16
     kernels = [
         _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
-             infer_launches['nms'], nms_rows['decode']),
+             infer_launches['nms'] + sum(o['infer']['nms']
+                                         for o in other.values()),
+             nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
              infer_launches['stem'] + rot_infer_launches['stem']
-             + engine_stem + rot_engine_stem,
+             + engine_stem + rot_engine_stem
+             + sum(o['infer']['stem'] + o['engine_stem']
+                   for o in other.values()),
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
                  r['max_abs_err'] for r in stem_rows.values()),
                   engine_shape=dict(
@@ -1506,16 +1790,28 @@ def main():
                   fp32=_times(stem_rows[torch.float32, STEM_SHAPE]))),
         _row('bn_relu_pool_idx', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:117',
-             train_launches['stem_idx'] + rot_launches['stem_idx'],
+             train_launches['stem_idx'] + rot_launches['stem_idx']
+             + multi_rot_launches['stem_idx']
+             + sum(o['train']['stem_idx'] for o in other.values()),
              dict(fwd_rows[bf16], fp32=_times(fwd_rows[torch.float32]))),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:157',
-             train_launches['stem_bwd'] + rot_launches['stem_bwd'],
+             train_launches['stem_bwd'] + rot_launches['stem_bwd']
+             + multi_rot_launches['stem_bwd']
+             + sum(o['train']['stem_bwd'] for o in other.values()),
              dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
              pallas + 'focal_kernel.py:186', train_launches['det_loss'],
              dict(loss_row, launches_bwd=train_launches['det_loss_bwd'])),
+    ]
+    for name in OTHER_MODELS:
+        o = other[name]
+        kernels.append(_row(
+            f'det_loss_{name}', csrc + 'det_loss.cu',
+            pallas + 'focal_kernel.py:186', o['train']['det_loss'],
+            dict(o['loss'], launches_bwd=o['train']['det_loss_bwd'])))
+    kernels += [
         _row('focal_sum', csrc + 'focal_sum.cu',
              pallas + 'focal_kernel.py:123', 0, focal_fwd[bf16]),
         _row('focal_sum_dx', csrc + 'focal_sum.cu',
@@ -1523,9 +1819,16 @@ def main():
         _row('det_loss_d6', csrc + 'det_loss.cu',
              pallas + 'focal_kernel.py:186', rot_launches['det_loss'],
              dict(rot_loss_row, launches_bwd=rot_launches['det_loss_bwd'])),
+        _row('det_loss_d6_l10', csrc + 'det_loss.cu',
+             pallas + 'focal_kernel.py:186', multi_rot_launches['det_loss'],
+             dict(multi_rot_loss_row,
+                  launches_bwd=multi_rot_launches['det_loss_bwd'])),
         _row('match_rotated', csrc + 'match_rotated.cu',
              pallas + 'match_rotated_kernel.py:104',
              rot_launches['match_rotated'], match_row),
+        _row('match_rotated_l10', csrc + 'match_rotated.cu',
+             pallas + 'match_rotated_kernel.py:104',
+             multi_rot_launches['match_rotated'], match_ten_row),
         _row('rotated_best_match', csrc + 'match_rotated.cu',
              pallas + 'iou_kernel.py:79',
              rot_launches['rotated_best_match'], best_row),
@@ -1537,8 +1840,13 @@ def main():
     print(f'train_ms_per_step: {step_ms}')
     print(f'rotated_e2e_ms_per_batch: {rot_batch_ms}')
     print(f'rotated_train_ms_per_step: {rot_step_ms}')
+    print(f'multi_rotated_train_ms_per_step: {multi_rot_step_ms}')
     print(f'engine_ms_per_batch ({smi}): {engine_ms}')
     print(f'rotated_engine_ms_per_batch ({smi}): {rot_engine_ms}')
+    for name, o in other.items():
+        print(f'{name} ({" + ".join(OTHER_MODELS[name][0])}; {smi}): train '
+              f'{o["step_ms"]} ms/step, infer {o["batch_ms"]} ms/batch, '
+              f'engines {o["engine_ms"]} ms/batch')
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -10,9 +10,11 @@ runs on this package's path is a hand-written CUDA kernel under
 ``csrc/``, built by ``ops/kernels/_build.py`` on first use, with a plain
 PyTorch version beside it for CPU tensors and tests.
 
-Covered so far, axis-aligned with the ResNet/ResNeXt FPN backbones:
-inference (``odtk-tpu-torch infer``) and training (``odtk-tpu-torch
-train``). A checkpoint's optimizer state is one-way: the port writes a
+Covered so far, axis-aligned and rotated, with every backbone of the
+JAX registry (the ResNet/ResNeXt FPNs, MobileNetV2FPN, ResNet18C4 and
+ResNet34C4) and models of several backbones: inference
+(``odtk-tpu-torch infer``), training (``odtk-tpu-torch train``) and
+export (``odtk-tpu-torch export``). A checkpoint's optimizer state is one-way: the port writes a
 ``torch.optim`` state_dict and starts the momentum fresh from a file
 the JAX trainer wrote.
 """

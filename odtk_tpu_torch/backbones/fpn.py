@@ -1,4 +1,5 @@
-"""Feature Pyramid Network over a 3-level backbone (NCHW).
+"""Feature Pyramid Network over a 3-level backbone (NCHW), and the
+MobileNetV2FPN registration.
 
 Counterpart of ``odtk_tpu/backbones/fpn.py:FPN``: 1x1 laterals on
 C3/C4/C5, nearest x2 top-down additions, 3x3 smoothing, and the extra
@@ -8,6 +9,9 @@ are 256; the input is padded to a multiple of ``stride`` = 128.
 
 import torch.nn.functional as F
 from torch import nn
+
+from .mobilenet import MobileNet
+from .registry import register
 
 
 class FPN(nn.Module):
@@ -36,3 +40,8 @@ class FPN(nn.Module):
         p6 = self.pyramid6(c5)
         p7 = self.pyramid7(F.relu(p6))
         return [self.smooth3(p3), self.smooth4(p4), self.smooth5(p5), p6, p7]
+
+
+@register
+def MobileNetV2FPN():
+    return FPN(MobileNet())

@@ -1,4 +1,5 @@
-"""ResNet / ResNeXt feature extractors (NCHW) and their FPN registrations.
+"""ResNet / ResNeXt feature extractors (NCHW): their FPN and C4
+registrations.
 
 Counterpart of ``odtk_tpu/backbones/resnet.py``. Module names follow
 torchvision's state_dict keys (conv1, bn1, layer{1-4}.{i}.conv{j}/bn{j}/
@@ -74,17 +75,23 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the C3, C4, C5 feature maps (strides 8, 16, 32) of an NCHW
-    image batch."""
+    """Returns the feature maps of the levels in ``outputs`` (level l at
+    stride 2^l: the default C3, C4, C5 at strides 8, 16, 32) of an NCHW
+    image batch. No stage beyond ``max(outputs)`` is built, so a C4 net
+    has no ``layer4`` (``odtk_tpu/backbones/resnet.py:159-161,184``)."""
 
     def __init__(self, layers=(3, 4, 6, 3), bottleneck=True, groups=1,
-                 width_per_group=64):
+                 width_per_group=64, outputs=(3, 4, 5)):
         super().__init__()
         block = Bottleneck if bottleneck else BasicBlock
+        self.outputs = tuple(outputs)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FixedBatchNorm(64)
         cin = 64
+        self.stages = []
         for stage, blocks in enumerate(layers):
+            if stage + 2 > max(self.outputs):
+                break
             planes = 64 * 2 ** stage
             stride = 1 if stage == 0 else 2
             seq = []
@@ -95,18 +102,20 @@ class ResNet(nn.Module):
                                  needs_ds, groups, width_per_group))
                 cin = planes * block.expansion
             self.add_module(f'layer{stage + 1}', nn.Sequential(*seq))
-        mult = block.expansion
-        self.feature_channels = [128 * mult, 256 * mult, 512 * mult]
+            self.stages.append(f'layer{stage + 1}')
+        self.feature_channels = [64 * 2 ** (level - 2) * block.expansion
+                                 for level in self.outputs]
 
     def forward(self, x):
         scale, shift = self.bn1.fold()
         pool = bn_relu_pool_train if torch.is_grad_enabled() else bn_relu_pool
         x = pool(self.conv1(x), scale, shift)
-        x = self.layer1(x)
-        c3 = self.layer2(x)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
-        return [c3, c4, c5]
+        outs = []
+        for level, name in enumerate(self.stages, start=2):
+            x = getattr(self, name)(x)
+            if level in self.outputs:
+                outs.append(x)
+        return outs
 
 
 @register
@@ -142,3 +151,26 @@ def ResNeXt50_32x4dFPN():
 @register
 def ResNeXt101_32x8dFPN():
     return FPN(ResNet(layers=(3, 4, 23, 3), groups=32, width_per_group=8))
+
+
+class ResNetC4(nn.Module):
+    """Single-level C4 backbone (``odtk_tpu/backbones/resnet.py:256-288``):
+    a BasicBlock ResNet through layer3 under ``features``, returning one
+    level, layer3's output (stride 16, 256 channels)."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.features = ResNet(layers=layers, bottleneck=False, outputs=(4,))
+
+    def forward(self, x):
+        return self.features(x)
+
+
+@register
+def ResNet18C4():
+    return ResNetC4(layers=(2, 2, 2, 2))
+
+
+@register
+def ResNet34C4():
+    return ResNetC4(layers=(3, 4, 6, 3))

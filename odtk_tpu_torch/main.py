@@ -42,6 +42,8 @@ def _add_common(parser):
 def parse(args):
     import torch
 
+    from . import backbones
+
     parser = argparse.ArgumentParser(
         description='ODTK-TPU (PyTorch + CUDA port): RetinaNet training '
                     'and inference.')
@@ -64,9 +66,12 @@ def parse(args):
                     help='COCO-JSON annotation file for the training images')
     pt.add_argument('--images', metavar='path', type=str, default='.',
                     help='directory containing the training images')
+    names = backbones.available()
     pt.add_argument('--backbone', action='store', type=str, nargs='+',
-                    default=['ResNet50FPN'],
-                    help='one or more backbone names from the registry')
+                    default=['ResNet50FPN'], choices=names, metavar='name',
+                    help='one or more backbone names from the registry '
+                         f'({", ".join(names)}); several build one model '
+                         'whose heads run on the levels of each in turn')
     pt.add_argument('--classes', metavar='num', type=int, default=80,
                     help='object classes in the dataset')
     pt.add_argument('--batch', metavar='size', type=int, default=2 * devcount,

@@ -248,9 +248,12 @@ class Model:
         (or [B, max_det, 6] rotated) padded with -1. Anchors and
         assignment per FPN level; a rotated model assigns all levels at
         once (``snap_to_anchors_rotated_levels``: one matcher kernel
-        launch a step on the card). Then one loss call over all levels,
-        one forward and one backward kernel launch a step on the card
-        (their plain versions on the CPU). Both sums are divided by the
+        launch a step on the card for every group of up to eight levels).
+        Then one loss call over all levels, one forward and one backward
+        kernel launch a step on the card for every such group (their
+        plain versions on the CPU). A model has one level (C4), five (an
+        FPN) or five a backbone (several FPNs, strides repeated; the
+        anchor tables are shared by stride). Both sums are divided by the
         foreground count, max(fg, 1) per level over the whole batch,
         summed over the levels."""
         cls_heads, box_heads = self.heads(images)

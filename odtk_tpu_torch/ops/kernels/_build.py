@@ -145,3 +145,10 @@ def check(rc, name):
 def stream_handle(device):
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def level_groups(n, limit):
+    """Slices cutting ``n`` independent levels into launches of at most
+    ``limit`` (a multi-level kernel's ``kMaxLevels``): the launches give
+    the rows one launch of all levels would."""
+    return [slice(lo, lo + limit) for lo in range(0, n, limit)]

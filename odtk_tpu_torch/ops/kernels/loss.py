@@ -81,9 +81,9 @@ def _as(t, dtype, device):
 
 
 def kernel_operands(cls_heads, box_heads, cls_ts, box_ts, depths, classes):
-    """Checked operands of the kernels, a tuple a level: the NCHW heads,
-    the targets as int32 / fp32 contiguous on the heads' device; and
-    (B, A, D)."""
+    """Checked operands of one launch of the kernels (1 to
+    ``MAX_LEVELS`` levels), a tuple a level: the NCHW heads, the targets
+    as int32 / fp32 contiguous on the heads' device; and (B, A, D)."""
     if not 0 < len(cls_heads) <= MAX_LEVELS:
         raise ValueError(f'detection_loss_sums: {len(cls_heads)} levels, the '
                          f'kernels take 1 to {MAX_LEVELS}')
@@ -211,8 +211,9 @@ def detection_loss_sums_levels(cls_heads, box_heads, cls_ts, box_ts, depths,
     box_head [B, H, W, A*D] NHWC (on CUDA: NHWC views of contiguous NCHW
     convolution outputs, one dtype for all levels); cls_idx [B, N] class
     indices, depth [B, N] (-1 ignore, 0 background, c+1 foreground),
-    box_t [B, N, D] deltas, N = H*W*A anchor-major. The caller normalizes
-    by the foreground count."""
+    box_t [B, N, D] deltas, N = H*W*A anchor-major; any number of levels
+    (on CUDA a forward and a backward launch for each group of up to
+    ``MAX_LEVELS``). The caller normalizes by the foreground count."""
     n = len(cls_heads)
     if not n or not all(len(t) == n for t in (box_heads, cls_ts, box_ts,
                                               depths)):
@@ -225,9 +226,13 @@ def detection_loss_sums_levels(cls_heads, box_heads, cls_ts, box_ts, depths,
                 cls_heads, box_heads, cls_ts, box_ts, depths)])
     if device.type != 'cuda':
         raise ValueError(f'detection_loss_sums: no kernel for device {device}')
-    return _DetectionLossLevels.apply(classes, float(alpha), float(gamma),
-                                      float(beta), n, *cls_heads, *box_heads,
-                                      *cls_ts, *box_ts, *depths)
+    sums = [_DetectionLossLevels.apply(
+        classes, float(alpha), float(gamma), float(beta),
+        len(cls_heads[cut]),
+        *(t for part in (cls_heads, box_heads, cls_ts, box_ts, depths)
+          for t in part[cut]))
+        for cut in _build.level_groups(n, MAX_LEVELS)]
+    return sums[0] if len(sums) == 1 else torch.cat(sums)
 
 
 def detection_loss_sums(cls_head, box_head, cls_idx, box_t, depth, classes,

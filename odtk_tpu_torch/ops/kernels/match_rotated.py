@@ -158,25 +158,30 @@ def _check_anchors(anchors, name):
 
 
 def rotated_match_levels(anchors, rows, n_act):
-    """Batched best match of every level in one launch: the plain
-    version on the CPU, the kernel on CUDA. anchors: a list of L [N_l, 8]
-    tensors; rows [L, B, M, 9]; n_act [L, B] -> a list of L (best_iou
-    [B, N_l] fp32, best_slot [B, N_l] int32)."""
+    """Batched best match of every level: the plain version on the CPU,
+    the kernel on CUDA, one launch for each group of up to
+    ``MAX_LEVELS`` levels. anchors: a list of L [N_l, 8] tensors; rows
+    [L, B, M, 9]; n_act [L, B] -> a list of L (best_iou [B, N_l] fp32,
+    best_slot [B, N_l] int32)."""
     if anchors[0].device.type == 'cpu':
         return rotated_match_levels_plain(
             [a.float() for a in anchors], rows.float(), n_act)
     anchors = [_check_anchors(a, 'rotated_match_levels') for a in anchors]
     levels = len(anchors)
     device = anchors[0].device
-    if (not 0 < levels <= MAX_LEVELS or rows.dim() != 4
+    if (not levels or rows.dim() != 4
             or rows.shape[0] != levels or rows.shape[3] != 9
             or n_act.shape != rows.shape[:2] or rows.device != device
             or n_act.device != device
             or any(a.device != device for a in anchors)):
-        raise ValueError(f'rotated_match_levels: {levels} levels (1 to '
-                         f'{MAX_LEVELS}), rows {tuple(rows.shape)} and n_act '
+        raise ValueError(f'rotated_match_levels: {levels} levels, rows '
+                         f'{tuple(rows.shape)} and n_act '
                          f'{tuple(n_act.shape)} on {rows.device}, '
                          f'{n_act.device}')
+    if levels > MAX_LEVELS:
+        return [out for cut in _build.level_groups(levels, MAX_LEVELS)
+                for out in rotated_match_levels(
+                    anchors[cut], rows[cut], n_act[cut])]
     b, m = rows.shape[1:3]
     rows = rows.float().contiguous()
     n_act = n_act.to(torch.int32).contiguous()

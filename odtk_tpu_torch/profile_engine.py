@@ -1,18 +1,20 @@
 """Where an exported engine's time goes on one CUDA device, beside the
 checkpoint path's.
 
-    python3 -m odtk_tpu_torch.profile_engine [--json FILE]
+    python3 -m odtk_tpu_torch.profile_engine [--backbone NAME ...]
+        [--json FILE]
 
-ResNet50FPN (80 classes, random weights from a seeded generator),
-threshold 0.001, axis-aligned and rotated, bf16 and fp32 (TF32 off), one
-engine per case exported at 896 x 1408 with one batch profile of 2. On
-one resident batch of normalized random images it measures, for the
-engine call and for ``Model.inference_fn`` on the same batch: the mean
-host ms per call, synchronized (``wall_ms``), and, from a
-``torch.profiler`` trace of ``STEPS`` calls, the device ms per call by
-kernel family (``profile_infer.family``). The device time the engine
-spends above the checkpoint path's is what its program adds on the card;
-the wall time above it, what it adds on the host.
+ResNet50FPN (or the ``--backbone`` given; 80 classes, random weights
+from a seeded generator), threshold 0.001, axis-aligned and rotated,
+bf16 and fp32 (TF32 off), one engine per case exported at 896 x 1408
+with one batch profile of 2. On one resident batch of normalized random
+images it measures, for the engine call and for ``Model.inference_fn``
+on the same batch: the mean host ms per call, synchronized
+(``wall_ms``), and, from a ``torch.profiler`` trace of ``STEPS`` calls,
+the device ms per call by kernel family (``profile_infer.family``). The
+device time the engine spends above the checkpoint path's is what its
+program adds on the card; the wall time above it, what it adds on the
+host.
 """
 
 import argparse
@@ -22,7 +24,7 @@ import time
 
 import torch
 
-from .profile_infer import device_events, family
+from .profile_infer import add_backbone_arg, device_events, family
 
 STEPS = 5
 SIZE = (896, 1408)
@@ -60,6 +62,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--json', type=str, default=None,
                         help='also write the results to this file')
+    add_backbone_arg(parser)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_engine: no CUDA device')
@@ -72,10 +75,10 @@ def main(argv=None):
     images = torch.randn(2, *SIZE, 3, generator=torch.Generator()
                          .manual_seed(0)).to(device)
     out = {'device': torch.cuda.get_device_name(0),
-           'torch': torch.__version__, 'size': list(SIZE), 'batch': 2,
-           'cases': {}}
+           'torch': torch.__version__, 'backbone': args.backbone,
+           'size': list(SIZE), 'batch': 2, 'cases': {}}
     for rotated in (False, True):
-        model = Model('ResNet50FPN', classes=80, rotated_bbox=rotated,
+        model = Model(args.backbone, classes=80, rotated_bbox=rotated,
                       config={'threshold': 0.001}).initialize(
             torch.Generator().manual_seed(0)).to(device)
         for precision, dtype in (('bf16', torch.bfloat16),

@@ -1,11 +1,13 @@
 """Where the inference path's time goes on one CUDA device.
 
-    python3 -m odtk_tpu_torch.profile_infer [--json FILE]
+    python3 -m odtk_tpu_torch.profile_infer [--backbone NAME ...]
+        [--json FILE]
 
 The path and sizes of ``chip_smoke.py``'s end-to-end phase: ResNet50FPN
-(80 classes, random weights from a seeded generator), bf16, batch 2,
-threshold 0.001, on 32 synthetic 480x640 JPEGs resized to 800x1067 (an
-896x1152 canvas). It measures, in this order:
+(or the ``--backbone`` given; 80 classes, random weights from a seeded
+generator), bf16, batch 2, threshold 0.001, on 32 synthetic 480x640
+JPEGs resized to 800x1067 (an 896x1152 canvas). It measures, in this
+order:
 
 1. ``loader``: the host loader alone (``DataIterator``), ms per batch
    over one epoch, host clock;
@@ -62,6 +64,9 @@ FAMILIES = [
     ('optimizer (fused SGD)', ('fused_sgd', 'multi_tensor', 'sgd_')),
     ('conv layout transform', ('nchwtonhwc', 'nhwctonchw',
                                'tensortransform')),
+    # grouped kernels named for depthwise convolutions (PyTorch's
+    # conv_depthwise2d_*): MobileNetV2FPN's
+    ('depthwise conv', ('depthwise',)),
     ('conv / GEMM math', ('xmma', 'cutlass', 'nvjet', 'gemm', 'cudnn',
                           'fprop', 'convolve', 'fft')),
     ('topk / sort', ('topk', 'sort', 'radix')),
@@ -102,6 +107,17 @@ def device_breakdown(prof, steps):
     return tuple({k: v / 1e3 / steps for k, v in
                   sorted(d.items(), key=lambda kv: -kv[1])}
                  for d in (by_family, by_kernel))
+
+
+def add_backbone_arg(parser):
+    """``--backbone``: one or more registry names (default ResNet50FPN),
+    as ``odtk-tpu-torch train`` takes them."""
+    from .backbones import available
+
+    parser.add_argument('--backbone', nargs='+', default=['ResNet50FPN'],
+                        choices=available(), metavar='name',
+                        help='backbone name(s) from the registry (default '
+                             'ResNet50FPN)')
 
 
 def write_images(root, n, seed=0):
@@ -179,20 +195,22 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--json', type=str, default=None,
                         help='also write the results to this file')
+    add_backbone_arg(parser)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_infer: no CUDA device')
     from .model import Model
 
     device = torch.device('cuda', 0)
-    model = Model('ResNet50FPN', classes=80).initialize(
+    model = Model(args.backbone, classes=80).initialize(
         torch.Generator().manual_seed(0))
     model.threshold = 0.001
     model.to(device)
     model.set_dtype(torch.bfloat16)
 
     out = {'device': torch.cuda.get_device_name(0),
-           'torch': torch.__version__, 'images': IMAGES, 'steps': STEPS}
+           'torch': torch.__version__, 'backbone': args.backbone,
+           'images': IMAGES, 'steps': STEPS}
     with tempfile.TemporaryDirectory(prefix='odtk_profile_') as root:
         img_dir = write_images(os.path.join(root, 'images'), IMAGES)
         batch, out['loader'] = loader_phase(img_dir, model.stride)

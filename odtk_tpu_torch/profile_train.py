@@ -1,15 +1,16 @@
 """Where the training step's time goes on one CUDA device.
 
-    python3 -m odtk_tpu_torch.profile_train [--rotated] [--json FILE]
+    python3 -m odtk_tpu_torch.profile_train [--rotated] [--backbone NAME ...]
+        [--json FILE]
 
-The path and sizes of ``chip_smoke.py``'s train phase: ResNet50FPN (80
-classes, random weights from a seeded generator), bf16 compute on fp32
-parameters, batch 8, the u8 feed, resize 800 / max 1333 on 32 synthetic
-480x640 JPEGs (an 896x1152 canvas) with random ground-truth boxes, SGD
-at a constant lr of 0.001. With ``--rotated``, its rotated-train phase:
-the rotated-box model (27 anchors, a box head of 6 x 27), up to 24
-rotated boxes an image, gradients clipped to a global norm of 25. It
-measures, in this order:
+The path and sizes of ``chip_smoke.py``'s train phase: ResNet50FPN (or
+the ``--backbone`` given; 80 classes, random weights from a seeded
+generator), bf16 compute on fp32 parameters, batch 8, the u8 feed,
+resize 800 / max 1333 on 32 synthetic 480x640 JPEGs (an 896x1152 canvas)
+with random ground-truth boxes, SGD at a constant lr of 0.001. With
+``--rotated``, its rotated-train phase: the rotated-box model (27
+anchors, a box head of 6 x 27), up to 24 rotated boxes an image,
+gradients clipped to a global norm of 25. It measures, in this order:
 
 1. ``loader``: the training loader alone (``DataIterator``, u8, the
    CLI's default colour augmentation), ms per batch over two epochs,
@@ -40,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from .profile_infer import device_breakdown, write_images
+from .profile_infer import add_backbone_arg, device_breakdown, write_images
 
 IMAGES = 32
 BATCH = 8
@@ -154,6 +155,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--json', type=str, default=None,
                         help='also write the results to this file')
+    add_backbone_arg(parser)
     parser.add_argument('--rotated', action='store_true',
                         help='the rotated-box model and targets')
     args = parser.parse_args(argv)
@@ -163,7 +165,7 @@ def main(argv=None):
 
     device = torch.device('cuda', 0)
     random.seed(0)
-    model = Model('ResNet50FPN', classes=80,
+    model = Model(args.backbone, classes=80,
                   rotated_bbox=args.rotated).initialize(
         torch.Generator().manual_seed(0))
     clip = ROTATED_CLIP_GRADS if args.rotated else 0.0
@@ -171,8 +173,9 @@ def main(argv=None):
     model.set_dtype(torch.bfloat16)
 
     out = {'device': torch.cuda.get_device_name(0),
-           'torch': torch.__version__, 'images': IMAGES, 'batch': BATCH,
-           'steps': STEPS, 'rotated': args.rotated}
+           'torch': torch.__version__, 'backbone': args.backbone,
+           'images': IMAGES, 'batch': BATCH, 'steps': STEPS,
+           'rotated': args.rotated}
     with tempfile.TemporaryDirectory(prefix='odtk_profile_') as root:
         img_dir = write_images(os.path.join(root, 'images'), IMAGES)
         ann = write_annotations(os.path.join(root, 'train.json'), IMAGES,

@@ -18,6 +18,7 @@ from odtk_tpu_torch.ops import (generate_anchors_rotated, rotate_boxes,
 from odtk_tpu_torch.ops.assign import level_anchors
 from odtk_tpu_torch.ops.iou_rotated import (pack_active, quad_areas,
                                             sincos_box_corners)
+from odtk_tpu_torch.ops.kernels import _build
 from odtk_tpu_torch.ops.kernels import focal as kfocal
 from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
@@ -139,7 +140,6 @@ def test_nms_plain_semantics():
 
 
 def test_build_compiles_every_source_for_sm90a():
-    from odtk_tpu_torch.ops.kernels import _build
     names = sorted(p.rsplit('/', 1)[-1] for p in _build.sources())
     assert names == ['det_loss.cu', 'focal_sum.cu', 'match_rotated.cu',
                      'nms.cu', 'nms_rotated.cu', 'stem_pool.cu']
@@ -515,6 +515,32 @@ def test_loss_levels_kernel_equals_plain(cuda_device, dtype, anchors, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dim', [4, 6])
+def test_loss_levels_past_one_launch(cuda_device, dim):
+    """Ten levels (two FPN backbones), axis (D = 4) and rotated (D = 6):
+    a forward and a backward launch for each group of ``level_groups``,
+    each level's sums and gradients against its plain version, and
+    bit-equal to the launches of its group alone."""
+    sizes = [(32, 40), (16, 20), (8, 10), (4, 5), (2, 3)] * 2
+    cases = [loss_case(h=h, w=w, dim=dim, dtype=torch.bfloat16,
+                       device=cuda_device, seed=i)
+             for i, (h, w) in enumerate(sizes)]
+    g = torch.from_numpy(np.random.RandomState(2).uniform(
+        0.1, 2.0, (10, 2)).astype(np.float32)).to(cuda_device)
+    fwd = kloss.detection_loss_fwd_kernel.launches
+    bwd = kloss.detection_loss_bwd_kernel.launches
+    sums = _loss_levels_vs_plain(cases, g)
+    cuts = _build.level_groups(10, kloss.MAX_LEVELS)
+    assert len(cuts) == 2
+    assert kloss.detection_loss_fwd_kernel.launches == fwd + len(cuts)
+    assert kloss.detection_loss_bwd_kernel.launches == bwd + len(cuts)
+    for cut in cuts:
+        ops, geo = kloss.kernel_operands(*zip(*cases[cut]), 80)
+        assert torch.equal(sums[cut],
+                           kloss.detection_loss_fwd_kernel(ops, geo, 80))
+
+
+@pytest.mark.cuda
 def test_loss_kernel_misaligned_heads_take_the_scalar_path(cuda_device):
     """Heads whose storage starts off a 16-byte boundary (HW % 8 == 0)
     are read and written by the scalar steps, with the same results."""
@@ -717,6 +743,44 @@ def test_match_levels_kernel_holds_the_plain_contract(cuda_device,
         fg = w_depth > 0
         assert torch.equal(cls[fg], w_cls[fg])
         assert torch.equal(deltas[fg], w_deltas[fg])
+
+
+@pytest.mark.cuda
+def test_match_levels_past_one_launch(cuda_device):
+    """Five levels given twice (10, two FPN backbones): a launch for each
+    group of ``level_groups``, each level bit-equal to its launch alone
+    and under the plain contract."""
+    from odtk_tpu_torch.ops.assign import rotated_targets
+    from odtk_tpu_torch.ops.iou_rotated import match_inputs_levels
+
+    size, strides = (336, 272), [8, 16, 32, 64, 128] * 2
+    anchors = [level_anchors(size[0] // s, size[1] // s, s,
+                             generate_anchors_rotated(
+                                 s, [1.0, 2.0, 0.5],
+                                 [4 * 2 ** (i / 3) for i in range(3)],
+                                 [-np.pi / 6, 0, np.pi / 6])[1], cuda_device)
+               for s in strides]
+    _, t, _ = match_case(device=cuda_device)
+    _, valid, _, quads = rotated_targets(t)
+    subj, rows, n_act = match_inputs_levels(anchors, quads, valid, 0.4)
+    before = kmatch.rotated_match_levels.launches
+    got = kmatch.rotated_match_levels(subj, rows, n_act)
+    torch.cuda.synchronize()
+    assert len(got) == 10
+    assert (kmatch.rotated_match_levels.launches
+            == before + len(_build.level_groups(10, kmatch.MAX_LEVELS)))
+    want = kmatch.rotated_match_levels_plain(subj, rows, n_act)
+    for level, ((g_iou, g_slot), (w_iou, w_slot)) in enumerate(
+            zip(got, want)):
+        one = kmatch.rotated_match_levels(
+            subj[level:level + 1], rows[level:level + 1],
+            n_act[level:level + 1])[0]
+        assert torch.equal(g_iou, one[0]) and torch.equal(g_slot, one[1])
+        hit = w_iou > 0
+        assert torch.equal(g_iou[hit], w_iou[hit])
+        assert torch.equal(g_slot[hit], w_slot[hit])
+        assert (g_iou[~hit] <= 0).all()
+    assert (want[5][0] > 0).sum() > 1000
 
 
 @pytest.mark.cuda

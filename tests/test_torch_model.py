@@ -180,6 +180,8 @@ def test_port_never_imports_jax():
             'before = set(sys.modules)\n'
             'import odtk_tpu_torch, odtk_tpu_torch.main\n'
             'import odtk_tpu_torch.infer, odtk_tpu_torch.model\n'
+            'import odtk_tpu_torch.backbones.mobilenet\n'
+            'import odtk_tpu_torch.backbones.resnet\n'
             'import odtk_tpu_torch.io.checkpoint\n'
             'import odtk_tpu_torch.io.jax_bridge\n'
             'import odtk_tpu_torch.profile_infer\n'
@@ -283,6 +285,10 @@ def test_profile_kernels_counts_vector_loops_and_p3_pairs():
     ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc',
      'conv / GEMM math'),
     ('nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT', 'conv / GEMM math'),
+    ('void at::native::(anonymous namespace)::conv_depthwise2d_forward_'
+     'kernel<3, c10::BFloat16, int>', 'depthwise conv'),
+    ('void at::native::(anonymous namespace)::conv_depthwise2d_grad_weight_'
+     'kernel<c10::BFloat16, float, int>', 'depthwise conv'),
     ('void at::native::mbtopk::gatherTopK<c10::BFloat16, unsigned int>',
      'topk / sort'),
     ('Memset (Device)', 'memcpy / memset'),
