@@ -11,8 +11,10 @@ classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
 ``tests/synth.py``, resize 800 / max 1333, bf16): train, infer, and
 export with infer on the engines, axis-aligned and rotated; then the
 same for ResNet34C4, MobileNetV2FPN and ResNet50FPN + MobileNetV2FPN
-in one model. It holds each kernel against its plain PyTorch version at
-the shapes those paths give it, and prints each phase's wall seconds:
+in one model; and a ResNet50FPN run's files (``.ckpt`` checkpoints,
+backbone weights, TensorBoard scalars, a trace, metrics). It holds each
+kernel against its plain PyTorch version at the shapes those paths give
+it, and prints each phase's wall seconds:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
@@ -114,7 +116,18 @@ the shapes those paths give it, and prints each phase's wall seconds:
  24. multi-rotated-train: ``train --rotated-bbox`` of the two-backbone
      model for 2 steps (the matcher and the loss twice a step each way);
  25. multi-rotated-loss: phase 5 at D = 6 on its first step's 10 levels
-     (an eight-level and a two-level launch each way).
+     (an eight-level and a two-level launch each way);
+ 26. ckpt: the training run's files (``ckpt_phase``): ``train r50.ckpt
+     --backbone-weights`` (a seeded torchvision-format ResNet50 file,
+     held equal to the backbone after ``load_backbone_weights``) for 12
+     steps with ``--logdir``, ``--profile-dir`` and ``--post-metrics`` (a
+     local ``http.server``), a resume from the ``.ckpt`` to 14 with its
+     momentum (no "starting the momentum fresh" warning), ``infer`` on
+     the ``.ckpt`` and on a ``.pth`` of the same weights (detections
+     equal); the event file's three scalars equal the logged losses, the
+     trace holds the stem and loss kernels' launches of its two steps,
+     the collector got the four keys; the ``.ckpt`` and ``.pth`` write
+     and read seconds and bytes with the momentum.
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -125,15 +138,19 @@ and power limit; the last line is the device summary.
 """
 
 import contextlib
+import http.server
 import json
 import math
 import os
 import random
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -568,6 +585,303 @@ def train_phase(root, img_dir, ann, rotated=False,
           f'ms/step (median after {min(3, steps - 1)}), loss first '
           f'{losses[0]} last {losses[-1]}', flush=True)
     return ckpt, launches, seen, snaps, ms, losses
+
+
+CKPT_STEPS, CKPT_RESUME_STEPS = 12, 14     # the trace window: 10, 11
+
+
+class _Collector(http.server.BaseHTTPRequestHandler):
+    """A local metrics endpoint: records each POST's form fields."""
+    posts = []
+
+    def do_POST(self):       # noqa: N802 (http.server's name)
+        body = self.rfile.read(int(self.headers['Content-Length']))
+        self.posts.append(urllib.parse.parse_qs(body.decode()))
+        self.send_response(200)
+        self.end_headers()
+
+    def log_message(self, *args):
+        pass
+
+
+def _varint(data, pos):
+    value, shift = 0, 0
+    while True:
+        byte = data[pos]
+        pos += 1
+        value |= (byte & 0x7F) << shift
+        shift += 7
+        if byte < 0x80:
+            return value, pos
+
+
+def _fields(data):
+    """{field number: [values]} of a protobuf message: varints as ints,
+    fixed64 / fixed32 as bytes, length-delimited as bytes."""
+    out, pos = {}, 0
+    while pos < len(data):
+        key, pos = _varint(data, pos)
+        wire = key & 7
+        if wire == 0:
+            value, pos = _varint(data, pos)
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            value, pos = data[pos:pos + n], pos + n
+        elif wire == 2:
+            n, pos = _varint(data, pos)
+            value, pos = data[pos:pos + n], pos + n
+        else:
+            raise AssertionError(f'event file: wire type {wire}')
+        out.setdefault(key >> 3, []).append(value)
+    return out
+
+
+def read_scalars(log_dir):
+    """[(tag, step, value)] of the one TensorBoard event file in
+    ``log_dir``, its TFRecord framing checked (the lengths; the CRCs are
+    held to tensorboard's in tests/test_torch_train_flags.py), its first
+    event the file version."""
+    (name,) = [f for f in os.listdir(log_dir)
+               if f.startswith('events.out.tfevents.')]
+    with open(os.path.join(log_dir, name), 'rb') as f:
+        data = f.read()
+    pos, scalars, first = 0, [], True
+    while pos < len(data):
+        (length,) = struct.unpack('<Q', data[pos:pos + 8])
+        event = _fields(data[pos + 12:pos + 12 + length])
+        pos += 16 + length
+        if first:
+            if event.get(3) != [b'brain.Event:2']:
+                raise AssertionError(f'event file version {event.get(3)}')
+            first = False
+            continue
+        step = event.get(2, [0])[0]
+        for value in _fields(event[5][0])[1]:
+            value = _fields(value)
+            scalars.append((value[1][0].decode(), step,
+                            struct.unpack('<f', value[2][0])[0]))
+    return scalars
+
+
+def _trace_kernels(path, names):
+    """{name: device kernel events of the Chrome trace whose name holds
+    it}."""
+    with open(path) as f:
+        trace = json.load(f)
+    kernels = [e['name'] for e in trace['traceEvents']
+               if e.get('cat') == 'kernel']
+    return {n: sum(n in k for k in kernels) for n in names}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _detections(path):
+    with open(path) as f:
+        return json.load(f)['annotations']
+
+
+def ckpt_phase(root, img_dir, ann, device, smi):
+    """The training run's files through the CLI, ResNet50FPN at full
+    width (train phase's data, batch, sizes, bf16 and lr): ``train
+    r50.ckpt --backbone-weights`` (a seeded torchvision-format ResNet50
+    file) for CKPT_STEPS iterations with ``--logdir``, ``--profile-dir``
+    and ``--post-metrics`` (a local ``http.server`` thread); a resume from
+    the ``.ckpt`` to CKPT_RESUME_STEPS; ``infer`` on the ``.ckpt`` and on
+    a ``.pth`` of the same weights. Checks the backbone equal to the file
+    after ``load_backbone_weights``, the ``.ckpt``'s iteration and
+    finite momentum, a resume without a fresh momentum, the three scalars
+    at the logged iteration with the printed losses, the stem and loss
+    kernels in the trace with the traced steps' launches, the four POSTed
+    keys, the two checkpoints' detections equal. Times the ``.ckpt`` and
+    ``.pth`` writes and reads of the model with its momentum. Returns the
+    launch counts of its train and infer runs."""
+    import warnings
+
+    from odtk_tpu_torch import main as cli
+    from odtk_tpu_torch import train as train_mod
+    from odtk_tpu_torch.io import checkpoint, msgpack, opt_state
+    from odtk_tpu_torch.io.torch_import import load_backbone_weights
+    from odtk_tpu_torch.model import Model
+    from odtk_tpu_torch.ops.kernels import loss, stem
+
+    wall = time.perf_counter()
+    name = 'ResNet50FPN'
+    # torchvision's ResNet50 layout: the port's features (kaiming convs,
+    # batch norms drawn near identity), its fc head, a num_batches_tracked
+    # a batch norm
+    gen = torch.Generator().manual_seed(1)
+    donor = Model(name, classes=80).initialize(gen)
+    sd = {}
+    for k, v in donor.module.backbones[name].features.state_dict().items():
+        if k.endswith(('running_mean', 'bias')) and v.ndim == 1:
+            v = 0.05 * torch.randn(v.shape, generator=gen)
+        elif k.endswith(('running_var', 'weight')) and v.ndim == 1:
+            v = 1 + 0.05 * torch.rand(v.shape, generator=gen)
+        sd[k] = v
+        if k.endswith('running_var'):
+            sd[k[:-len('running_var')] + 'num_batches_tracked'] = \
+                torch.tensor(1000)
+    sd['fc.weight'] = 0.01 * torch.randn(1000, 2048, generator=gen)
+    sd['fc.bias'] = torch.zeros(1000)
+    weights = os.path.join(root, 'resnet50_torchvision.pth')
+    torch.save(sd, weights)
+    probe = Model(name, classes=80).initialize(0)
+    load_backbone_weights(probe, name, weights)
+    own = probe.module.state_dict()
+    prefix = f'backbones.{name}.features.'
+    for k, v in sd.items():
+        if not k.startswith('fc.') and not k.endswith('batches_tracked') \
+                and not torch.equal(own[prefix + k], v):
+            raise AssertionError(f'ckpt: {prefix + k} is not the file\'s')
+    del probe, own, donor
+
+    ckpt = os.path.join(root, 'r50.ckpt')
+    logdir, profile_dir = (os.path.join(root, d) for d in ('logs', 'trace'))
+    _Collector.posts = []
+    server = http.server.HTTPServer(('127.0.0.1', 0), _Collector)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    train_args = [
+        'train', ckpt, '--images', img_dir, '--annotations', ann,
+        '--backbone', name, '--classes', '80', '--batch', str(TRAIN_BATCH),
+        '--resize', '800', '--max-size', '1333', '--jitter', '800', '800',
+        '--warmup', str(WARMUP), '--milestones', str(CKPT_RESUME_STEPS),
+        '--lr', str(TRAIN_LR)]
+    counted = {'det_loss': loss.detection_loss_fwd_kernel,
+               'det_loss_bwd': loss.detection_loss_bwd_kernel,
+               'stem_idx': stem.bn_relu_pool_idx,
+               'stem_bwd': stem.bn_relu_pool_bwd,
+               'stem_primal': stem.bn_relu_pool}
+    launches = dict.fromkeys(counted, 0)
+    runs = []
+    try:
+        for steps, extra in (
+                (CKPT_STEPS, ['--backbone-weights', weights, '--logdir',
+                              logdir, '--profile-dir', profile_dir,
+                              '--post-metrics',
+                              f'http://127.0.0.1:{server.server_address[1]}/']),
+                (CKPT_RESUME_STEPS, [])):
+            for k in counted.values():
+                k.launches = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                runs.append(cli.main(train_args + ['--iters', str(steps)]
+                                     + extra))
+            for n, k in counted.items():
+                launches[n] += k.launches
+            fresh = [str(w.message) for w in caught
+                     if 'momentum fresh' in str(w.message)]
+            if fresh:
+                raise AssertionError(f'ckpt: {fresh}')
+            if steps == CKPT_STEPS:
+                checked = checkpoint.read(ckpt)
+                if checked['iteration'] != CKPT_STEPS:
+                    raise AssertionError(f'ckpt: iteration '
+                                         f'{checked["iteration"]}')
+                trace = msgpack.msgpack_restore(
+                    checked['optimizer'])['1']['trace']   # clip 0's chain
+                leaves = list(_leaves(trace))
+                if not all(np.isfinite(v).all() for v in leaves) or not any(
+                        np.abs(v).max() > 0 for v in leaves):
+                    raise AssertionError('ckpt: momentum not finite or zero')
+                del checked, trace, leaves
+    finally:
+        server.shutdown()
+        server.server_close()
+    expect = {k: v for k, v in expected_launches(   # 12 steps, then 2
+        (name,), False, CKPT_RESUME_STEPS).items() if k in counted}
+    if launches != expect:
+        raise AssertionError(f'ckpt: launches {launches}, expected {expect}')
+    first, resumed = runs
+    if [it for it, _, _ in resumed['losses']] != list(
+            range(CKPT_STEPS, CKPT_RESUME_STEPS)):
+        raise AssertionError(f'ckpt: resumed at {resumed["losses"]}')
+    if checkpoint.peek_iteration(ckpt) != CKPT_RESUME_STEPS:
+        raise AssertionError('ckpt: resume did not end at '
+                             f'{CKPT_RESUME_STEPS}')
+
+    focal = float(np.mean([c for _, c, _ in first['losses']]))
+    box = float(np.mean([b for _, _, b in first['losses']]))
+    lr = train_mod.lr_schedule(TRAIN_LR, WARMUP, [CKPT_RESUME_STEPS],
+                               0.1)(CKPT_STEPS)
+    scalars = read_scalars(logdir)
+    want = [('focal_loss', CKPT_STEPS, focal), ('box_loss', CKPT_STEPS, box),
+            ('learning_rate', CKPT_STEPS, lr)]
+    if [(t, s) for t, s, _ in scalars] != [(t, s) for t, s, _ in want] or \
+            not all(math.isclose(v, w, rel_tol=1e-6)
+                    for (_, _, v), (_, _, w) in zip(scalars, want)):
+        raise AssertionError(f'ckpt: event file {scalars}, logged {want}')
+    posted = [p['metric'][0] for p in _Collector.posts]
+    if posted != ['focal loss', 'box loss', 'im_s', 'lr'] or len(
+            {p['time'][0] for p in _Collector.posts}) != 1:
+        raise AssertionError(f'ckpt: posted {_Collector.posts}')
+    traced = CKPT_STEPS - 10
+    per_step = expected_launches((name,), False, 1)
+    kernel_names = {'stem_pool_fwd_kernel': per_step['stem_idx'],
+                    'stem_pool_bwd_kernel': per_step['stem_bwd'],
+                    'det_loss_fwd_kernel': per_step['det_loss'],
+                    'det_loss_bwd_kernel': per_step['det_loss_bwd']}
+    in_trace = _trace_kernels(first['trace'], kernel_names)
+    if in_trace != {k: traced * n for k, n in kernel_names.items()}:
+        raise AssertionError(f'ckpt: trace {first["trace"]} holds '
+                             f'{in_trace}, expected {traced} steps of '
+                             f'{kernel_names}')
+
+    # the same model and momentum written and read in both formats
+    model, state = Model.load(ckpt)
+    model.to(device)
+    optimizer = train_mod.make_optimizer(model.module.parameters(),
+                                         TRAIN_LR)
+    count = opt_state.restore(optimizer, model.module, state.pop('optimizer'),
+                              0.0)
+    io_s, sizes = {}, {}
+    for ext in ('.ckpt', '.pth'):
+        path = os.path.join(root, f'r50_copy{ext}')
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        saved = (optimizer.state_dict() if ext == '.pth' else
+                 opt_state.to_optax(optimizer, model.module, 0.0, count))
+        model.save(dict(state, path=path, optimizer=saved))
+        io_s[f'write{ext}'] = time.perf_counter() - start
+        del saved
+        start = time.perf_counter()
+        checkpoint.read(path)
+        io_s[f'read{ext}'] = time.perf_counter() - start
+        sizes[ext] = os.path.getsize(path)
+    del model, optimizer, state
+
+    infer_launches, dets = {}, {}
+    for ext, path in (('ckpt', ckpt), ('pth', os.path.join(
+            root, 'r50_copy.pth'))):
+        label = f'ckpt-infer-{ext}'
+        got, _, _ = e2e_phase(root, path, img_dir, ann, label=label)
+        for n, v in got.items():
+            infer_launches[n] = infer_launches.get(n, 0) + v
+        dets[ext] = _detections(os.path.join(
+            root, f'detections_axis_{label}.json'))
+    a, b = dets['ckpt'], dets['pth']
+    if len(a) != len(b) or [(d['image_id'], d['category_id']) for d in a] \
+            != [(d['image_id'], d['category_id']) for d in b]:
+        raise AssertionError(f'ckpt: {len(a)} detections from the .ckpt, '
+                             f'{len(b)} from the .pth')
+    diff = max((abs(x - y) for d, e in zip(a, b)
+                for x, y in zip(d['bbox'] + [d['score']],
+                                e['bbox'] + [e['score']])), default=0.0)
+    if diff > 1e-3:
+        raise AssertionError(f'ckpt: detections differ by {diff}')
+    print(f'ckpt ({smi}): count {count}; .ckpt {sizes[".ckpt"]} bytes, '
+          f'write {io_s["write.ckpt"]:.3f} s, read {io_s["read.ckpt"]:.3f} '
+          f's; .pth {sizes[".pth"]} bytes, write {io_s["write.pth"]:.3f} s, '
+          f'read {io_s["read.pth"]:.3f} s; trace {in_trace} over {traced} '
+          f'steps; scalars {scalars}; {len(a)} detections, .ckpt vs .pth '
+          f'largest difference {diff}; {time.perf_counter() - wall:.1f} s '
+          'wall', flush=True)
+    return {'train': launches, 'infer': infer_launches}
 
 
 # levels and ResNet stems (the stem kernels' users) of each backbone the
@@ -1729,6 +2043,8 @@ def main():
         with phase('export'):
             engine_ms, engine_stem = export_phase(root, ckpt, img_dir, ann,
                                                   device)
+        with phase('ckpt'):
+            ckpt_launches = ckpt_phase(root, img_dir, ann, device, smi)
         other = {name: other_phases(name, root, img_dir, ann, device)
                  for name in OTHER_MODELS}
 
@@ -1773,13 +2089,13 @@ def main():
     bf16 = torch.bfloat16
     kernels = [
         _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
-             infer_launches['nms'] + sum(o['infer']['nms']
-                                         for o in other.values()),
+             infer_launches['nms'] + ckpt_launches['infer']['nms']
+             + sum(o['infer']['nms'] for o in other.values()),
              nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
              infer_launches['stem'] + rot_infer_launches['stem']
-             + engine_stem + rot_engine_stem
+             + ckpt_launches['infer']['stem'] + engine_stem + rot_engine_stem
              + sum(o['infer']['stem'] + o['engine_stem']
                    for o in other.values()),
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
@@ -1792,18 +2108,22 @@ def main():
              pallas + 'stem_kernel.py:117',
              train_launches['stem_idx'] + rot_launches['stem_idx']
              + multi_rot_launches['stem_idx']
+             + ckpt_launches['train']['stem_idx']
              + sum(o['train']['stem_idx'] for o in other.values()),
              dict(fwd_rows[bf16], fp32=_times(fwd_rows[torch.float32]))),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:157',
              train_launches['stem_bwd'] + rot_launches['stem_bwd']
              + multi_rot_launches['stem_bwd']
+             + ckpt_launches['train']['stem_bwd']
              + sum(o['train']['stem_bwd'] for o in other.values()),
              dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
-             pallas + 'focal_kernel.py:186', train_launches['det_loss'],
-             dict(loss_row, launches_bwd=train_launches['det_loss_bwd'])),
+             pallas + 'focal_kernel.py:186',
+             train_launches['det_loss'] + ckpt_launches['train']['det_loss'],
+             dict(loss_row, launches_bwd=train_launches['det_loss_bwd']
+                  + ckpt_launches['train']['det_loss_bwd'])),
     ]
     for name in OTHER_MODELS:
         o = other[name]

@@ -13,10 +13,12 @@ PyTorch version beside it for CPU tensors and tests.
 Covered so far, axis-aligned and rotated, with every backbone of the
 JAX registry (the ResNet/ResNeXt FPNs, MobileNetV2FPN, ResNet18C4 and
 ResNet34C4) and models of several backbones: inference
-(``odtk-tpu-torch infer``), training (``odtk-tpu-torch train``) and
-export (``odtk-tpu-torch export``). A checkpoint's optimizer state is one-way: the port writes a
-``torch.optim`` state_dict and starts the momentum fresh from a file
-the JAX trainer wrote.
+(``odtk-tpu-torch train``, with every flag of the JAX CLI at world 1)
+and export (``odtk-tpu-torch export``). Checkpoints are ``.pth`` or
+``.ckpt`` (flax msgpack, read and written without flax), and the
+momentum carries over both ways through a ``.ckpt`` or the JAX
+package's optax bytes; a ``.pth`` written here holds a ``torch.optim``
+state_dict, as the original's schema has it.
 """
 
 __version__ = '0.1.0'

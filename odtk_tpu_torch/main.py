@@ -6,11 +6,16 @@ Flag-compatible with ``odtk-tpu train``, ``infer`` and ``export``
 checkpoint with ``angles``, or a rotated engine, implies it), plus
 ``--device`` (default ``cuda``). With ``cuda`` and no card it raises;
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-CPU. ``export`` writes an engine (``export.py``) for the device it runs
-on; ``infer`` on a path with an engine extension loads one. The flags
-and targets of what is not ported yet raise and name the ROADMAP item;
-``--with-dali`` and ``--with-apex`` are compatibility no-ops, as in the
-JAX CLI.
+CPU. Checkpoints are ``.pth`` / ``.torch`` or ``.ckpt`` (flax msgpack),
+as in the JAX CLI (``io/checkpoint.py``). ``export`` writes an engine
+(``export.py``) for the device it runs on; ``infer`` on a path with an
+engine extension loads one. ``train`` takes every flag of the JAX CLI:
+``--backbone-weights`` (torchvision-format files for a fresh model's
+backbones), ``--logdir`` (TensorBoard scalars), ``--profile-dir`` (a
+``torch.profiler`` trace) and ``--post-metrics``. What is not ported
+yet (``--num-hosts`` > 1) raises and names the ROADMAP item, and
+``--feed yuv420`` is not ported; ``--with-dali`` and ``--with-apex`` are
+compatibility no-ops, as in the JAX CLI.
 """
 
 import argparse
@@ -18,15 +23,8 @@ import os
 import random
 import sys
 
+CHECKPOINT_EXTS = ('.pth', '.torch', '.ckpt')
 ENGINE_EXTS = ('.engine', '.plan')
-
-# flag -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    'backbone_weights': 'Queue 1 item 3 (backbone weight import)',
-    'logdir': 'Queue 1 item 9 (TensorBoard and metrics in train)',
-    'post_metrics': 'Queue 1 item 9 (TensorBoard and metrics in train)',
-    'profile_dir': 'Queue 1 item 9 (TensorBoard and metrics in train)',
-}
 
 
 def _add_common(parser):
@@ -61,7 +59,8 @@ def parse(args):
 
     pt = subparsers.add_parser('train', help='train a network')
     pt.add_argument('model', type=str,
-                    help='checkpoint to write (resumes if it already exists)')
+                    help='checkpoint to write, .pth or .ckpt (resumes if it '
+                         'already exists)')
     pt.add_argument('--annotations', metavar='path', type=str, required=True,
                     help='COCO-JSON annotation file for the training images')
     pt.add_argument('--images', metavar='path', type=str, default='.',
@@ -160,21 +159,24 @@ def parse(args):
                     nargs='+', default=None,
                     help='anchor angles in radians (rotated-bbox models '
                          'only)')
-    # not ported yet: each raises and names its ROADMAP item
     pt.add_argument('--backbone-weights', metavar='path', type=str,
-                    nargs='+', default=[], help='(not ported yet)')
+                    nargs='+', default=[],
+                    help='torchvision-format state_dict file(s) to '
+                         'initialize a fresh model\'s backbone(s) from, '
+                         'one per --backbone (no weights are downloaded)')
     pt.add_argument('--logdir', metavar='logdir', type=str,
-                    help='(not ported yet)')
+                    help='TensorBoard output directory')
     pt.add_argument('--post-metrics', metavar='url', type=str,
-                    help='(not ported yet)')
+                    help='HTTP endpoint to push training metrics to')
     pt.add_argument('--profile-dir', metavar='path', type=str,
-                    help='(not ported yet)')
+                    help='write a torch.profiler trace of iterations start '
+                         '+ 10 to start + 20 to this directory')
     _add_common(pt)
 
     pi = subparsers.add_parser('infer', help='run inference')
     pi.add_argument('model', type=str,
-                    help='checkpoint (.pth) or engine (.engine, .plan) to '
-                         'run')
+                    help='checkpoint (.pth, .ckpt) or engine (.engine, '
+                         '.plan) to run')
     pi.add_argument('--images', metavar='path', type=str, default='.',
                     help='directory of images to process')
     pi.add_argument('--annotations', metavar='annotations', type=str,
@@ -263,11 +265,6 @@ def _refuse_unported(args):
     if args.feed == 'yuv420':
         raise NotImplementedError(
             '--feed yuv420 is not ported (ROADMAP "Do not port"); use u8')
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                '--{} is not ported yet (ROADMAP {})'.format(
-                    flag.replace('_', '-'), item))
 
 
 def load_model(args):
@@ -276,7 +273,8 @@ def load_model(args):
     engine file, else the checkpoint's."""
     from .model import Model
 
-    if args.command == 'infer' and args.model.endswith(ENGINE_EXTS):
+    ext = os.path.splitext(args.model)[1]
+    if args.command == 'infer' and ext in ENGINE_EXTS:
         from .export import Engine
         print('Loading engine from {}...'.format(os.path.basename(args.model)))
         return Engine.load(args.model, device=args.device), {}
@@ -290,8 +288,15 @@ def load_model(args):
                       anchor_ious=args.anchor_ious)
         model.initialize(random.randint(0, 2 ** 31 - 1),
                          fine_tune=args.fine_tune)
+        if args.backbone_weights:
+            from .io.torch_import import load_backbone_weights
+            for name, path in zip(args.backbone, args.backbone_weights):
+                print('Loading {} weights from {}...'.format(name, path))
+                load_backbone_weights(model, name, path)
         state = {}
     else:
+        if ext not in CHECKPOINT_EXTS:
+            raise RuntimeError('Invalid model format "{}"!'.format(ext))
         # loaded on the CPU: train() / infer() move it to the device
         print('Loading model from {}...'.format(os.path.basename(args.model)))
         model, state = Model.load(args.model,
@@ -321,7 +326,8 @@ def run(args, model, state):
             int(args.iters * args.schedule), args.val_iters, args.lr,
             args.warmup, [int(m * args.schedule) for m in args.milestones],
             args.gamma, mixed_precision=not args.full_precision, verbose=True,
-            rotate_augment=args.augment_rotate,
+            metrics_url=args.post_metrics, logdir=args.logdir,
+            profile_dir=args.profile_dir, rotate_augment=args.augment_rotate,
             crop_augment=args.augment_crop,
             augment_brightness=args.augment_brightness,
             augment_contrast=args.augment_contrast,

@@ -155,7 +155,7 @@ class Model:
         """Draw random weights from ``generator`` (a CPU torch.Generator,
         or an int seed for one); the module must still be on the CPU.
 
-        ``fine_tune``: a ``.pth`` checkpoint whose weights then replace
+        ``fine_tune``: a ``.pth`` or ``.ckpt`` checkpoint whose weights replace
         the drawn ones, module by module (the backbone, each head conv),
         where every tensor of the module is present with the same shape;
         the final classification conv ``cls_head.8`` is never copied,

@@ -17,25 +17,48 @@ Counterpart of ``odtk_tpu/train.py`` at world 1:
   count; the JAX schedule follows the count of applied updates, which
   is one less after each skipped step.
 - Losses are fetched every ``sync_every`` steps, with the divergence
-  guard; the checkpoint and the log line come every ~60 s and at the
-  end, validation every ``val_iterations``.
+  guard; the checkpoint, the log line, the TensorBoard scalars
+  (``logdir``) and the metrics POST (``metrics_url``) come every ~60 s
+  and at the end, validation every ``val_iterations``. ``profile_dir``
+  takes a ``torch.profiler`` trace of iterations start + 10 to start +
+  20, as the JAX trainer takes a ``jax.profiler`` one.
+- The checkpoint's optimizer state has its path's format
+  (``io/checkpoint.py``): a ``torch.optim`` state_dict in a ``.pth``,
+  the JAX trainer's optax state in a ``.ckpt`` (``io/opt_state.py``,
+  with the count of applied updates); the momentum is restored from
+  either, and from the optax bytes of a JAX-written ``.pth``.
 - Batches come from the u8 feed by default: a feeder thread pins each
   batch and copies it to the device on a side stream, one batch ahead
   of the step (``_device_feed``).
 """
 
 import math
+import os
 import queue
 import threading
-import warnings
 
 import numpy as np
 import torch
 
 from .data import DataIterator, RotatedDataIterator
 from .infer import BatchClock, infer
+from .io import checkpoint, opt_state
 from .ops import apply_color_affine
-from .utils import Profiler, ignore_sigint
+from .utils import Profiler, ignore_sigint, post_metrics
+
+VALIDATION_TAGS = [
+    'Validation_Precision/mAP',
+    'Validation_Precision/mAP@0.50IoU',
+    'Validation_Precision/mAP@0.75IoU',
+    'Validation_Precision/mAP (small)',
+    'Validation_Precision/mAP (medium)',
+    'Validation_Precision/mAP (large)',
+    'Validation_Recall/mAR (max 1 Dets)',
+    'Validation_Recall/mAR (max 10 Dets)',
+    'Validation_Recall/mAR (max 100 Dets)',
+    'Validation_Recall/mAR (small)',
+    'Validation_Recall/mAR (medium)',
+    'Validation_Recall/mAR (large)']
 
 
 def lr_schedule(lr, warmup, milestones, gamma):
@@ -155,20 +178,46 @@ def _device_feed(data_iterator, device, prefetch=2):
         stop.set()
 
 
+class _Trace:
+    """A ``torch.profiler`` trace (CPU, and CUDA on the card) written as
+    a Chrome trace into ``directory`` when it stops."""
+
+    def __init__(self, directory, device, first):
+        self.directory, self.device, self.first = directory, device, first
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profile = torch.profiler.profile(activities=activities)
+        self.profile.start()
+
+    def stop(self, end):
+        """Stop after iteration ``end`` - 1; returns the trace's path."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.profile.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        path = os.path.join(self.directory,
+                            f'train_iterations_{self.first}-{end - 1}.json')
+        self.profile.export_chrome_trace(path)
+        return path
+
+
 def train(model, state, path, annotations, val_path, val_annotations,
           resize, max_size, jitter, batch_size, iterations, val_iterations,
           lr, warmup, milestones, gamma, mixed_precision=True, verbose=True,
-          rotate_augment=False, crop_augment=False, augment_brightness=0.0,
-          augment_contrast=0.0, augment_hue=0.0, augment_saturation=0.0,
-          regularization_l2=0.0001, max_det=128, sync_every=8,
-          clip_grads=0.0, feed='u8', device='cuda', rotated_bbox=False,
-          absolute_angle=False):
+          metrics_url=None, logdir=None, rotate_augment=False,
+          crop_augment=False, augment_brightness=0.0, augment_contrast=0.0,
+          augment_hue=0.0, augment_saturation=0.0, regularization_l2=0.0001,
+          max_det=128, sync_every=8, clip_grads=0.0, feed='u8',
+          device='cuda', rotated_bbox=False, absolute_angle=False,
+          profile_dir=None):
     """Train ``model`` for ``iterations`` steps on one device; writes
     ``state['path']`` at the log cadence and at the end. Returns
     ``{'model', 'losses', 'step_ms'}``: the (iteration, focal, box)
     losses of every step, and the ms between the ends of consecutive
     steps on the device's clock (host clock on the CPU; ``BatchClock``
-    of ``infer.py``), which takes no synchronization inside the loop."""
+    of ``infer.py``), which takes no synchronization inside the loop.
+    With ``profile_dir`` it also holds ``trace``, the trace's path."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device cuda requested but no CUDA device is '
@@ -184,13 +233,18 @@ def train(model, state, path, annotations, val_path, val_annotations,
         torch.backends.cuda.matmul.allow_tf32 = False
     optimizer = make_optimizer(model.module.parameters(), lr,
                                regularization_l2)
-    opt_state = state.get('optimizer')
-    if isinstance(opt_state, dict):
-        optimizer.load_state_dict(opt_state)
-    elif opt_state is not None:
-        warnings.warn('the checkpoint\'s optimizer state was not written by '
-                      'odtk_tpu_torch (a JAX optax blob); starting the '
-                      'momentum fresh')
+    iteration = state.get('iteration', 0)
+    # updates applied so far: the optax count (io/opt_state.py); a torch
+    # state_dict holds none, so it starts at the iteration
+    applied = iteration
+    saved = state.pop('optimizer', None)     # may hold the file's bytes
+    if isinstance(saved, dict):
+        optimizer.load_state_dict(saved)
+    elif saved is not None:
+        count = opt_state.restore(optimizer, model.module, saved,
+                                  clip_grads)
+        applied = iteration if count is None else count
+    del saved
     schedule = lr_schedule(lr, warmup, milestones, gamma)
     train_step = make_train_step(model, optimizer, clip_grads, feed)
 
@@ -215,22 +269,36 @@ def train(model, state, path, annotations, val_path, val_annotations,
         print(' BBOX type:', 'rotated' if rotated_bbox else 'axis aligned')
         print('Training model for {} iterations...'.format(iterations))
 
+    writer = None
+    if logdir is not None:
+        from .io.events import SummaryWriter
+        if verbose:
+            print('Writing TensorBoard logs to: {}'.format(logdir))
+        writer = SummaryWriter(logdir)
+
     def save_checkpoint(iteration):
-        state.update({'iteration': iteration,
-                      'optimizer': optimizer.state_dict(),
+        if checkpoint.is_torch_format(state['path']):
+            saved = optimizer.state_dict()
+        else:
+            saved = opt_state.to_optax(optimizer, model.module, clip_grads,
+                                       applied)
+        state.update({'iteration': iteration, 'optimizer': saved,
                       'scheduler': {'last_iter': iteration}})
         with ignore_sigint():
             model.save(state)
 
     profiler = Profiler(['train', 'fw', 'bw'])
-    iteration = state.get('iteration', 0)
+    profile_start = iteration + 10 if profile_dir else None
+    trace, trace_path = None, None
     cls_losses, box_losses, history = [], [], []
     pending = []
     clock = BatchClock(device)
 
     def drain_pending():
-        for it_idx, cl_dev, bl_dev in pending:
+        nonlocal applied
+        for it_idx, cl_dev, bl_dev, skipped in pending:
             cl, bl = float(cl_dev), float(bl_dev)
+            applied += 1 - int(skipped)
             cls_losses.append(cl)
             box_losses.append(bl)
             history.append((it_idx, cl, bl))
@@ -245,6 +313,8 @@ def train(model, state, path, annotations, val_path, val_annotations,
         for arrays in _device_feed(data_iterator, device):
             if iteration >= iterations:
                 break
+            if iteration == profile_start:
+                trace = _Trace(profile_dir, device, iteration)
             profiler.start('fw')
             if feed == 'u8':
                 images, targets, colors, sizes = arrays
@@ -257,18 +327,23 @@ def train(model, state, path, annotations, val_path, val_annotations,
             clock.mark()
             profiler.stop('fw')
             profiler.start('bw')
-            pending.append((iteration, cls_loss, box_loss))
+            pending.append((iteration, cls_loss, box_loss,
+                            optimizer.found_inf))
             if len(pending) >= max(1, sync_every) \
                     or iteration + 1 >= iterations:
                 drain_pending()
             profiler.stop('bw')
 
             iteration += 1
+            if trace is not None and iteration == profile_start + 10:
+                trace_path = trace.stop(iteration)
+                trace = None
             profiler.bump('train')
             if profiler.totals['train'] > 60 or iteration == iterations:
                 drain_pending()
                 focal_loss = float(np.mean(cls_losses))
                 box_loss_m = float(np.mean(box_losses))
+                learning_rate = schedule(iteration)
                 if verbose:
                     msg = '[{:{len}}/{}]'.format(
                         iteration, iterations, len=len(str(iterations)))
@@ -280,8 +355,19 @@ def train(model, state, path, annotations, val_path, val_annotations,
                         profiler.means['fw'], profiler.means['bw'])
                     msg += ', {:.1f} im/s'.format(
                         batch_size / profiler.means['train'])
-                    msg += ', lr: {:.2g}'.format(schedule(iteration))
+                    msg += ', lr: {:.2g}'.format(learning_rate)
                     print(msg, flush=True)
+                if writer is not None:
+                    writer.add_scalar('focal_loss', focal_loss, iteration)
+                    writer.add_scalar('box_loss', box_loss_m, iteration)
+                    writer.add_scalar('learning_rate', learning_rate,
+                                      iteration)
+                if metrics_url:
+                    post_metrics(metrics_url, {
+                        'focal loss': focal_loss,
+                        'box loss': box_loss_m,
+                        'im_s': batch_size / profiler.means['train'],
+                        'lr': learning_rate})
                 save_checkpoint(iteration)
                 profiler.reset()
                 del cls_losses[:], box_losses[:]
@@ -289,9 +375,22 @@ def train(model, state, path, annotations, val_path, val_annotations,
             if val_annotations and (iteration == iterations
                                     or (val_iterations
                                         and iteration % val_iterations == 0)):
-                infer(model, val_path, None, resize, max_size, batch_size,
-                      annotations=val_annotations,
-                      mixed_precision=mixed_precision, verbose=False,
-                      device=device, rotated_bbox=rotated_bbox)
-    return {'model': model, 'losses': history,
-            'step_ms': clock.intervals_ms()}
+                stats = infer(model, val_path, None, resize, max_size,
+                              batch_size, annotations=val_annotations,
+                              mixed_precision=mixed_precision,
+                              verbose=False, device=device,
+                              rotated_bbox=rotated_bbox)['stats']
+                if writer is not None and stats is not None:
+                    for tag, value in zip(VALIDATION_TAGS, stats):
+                        writer.add_scalar(tag, value, iteration)
+    # a run that ends inside the window closes its trace here (the JAX
+    # trainer leaves it open)
+    if trace is not None:
+        trace_path = trace.stop(iteration)
+    if writer is not None:
+        writer.close()
+    out = {'model': model, 'losses': history,
+           'step_ms': clock.intervals_ms()}
+    if profile_dir:
+        out['trace'] = trace_path
+    return out

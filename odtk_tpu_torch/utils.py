@@ -1,12 +1,17 @@
-"""Helpers: a wall-clock profiler, a SIGINT guard and the rotated-box
-corner helper.
+"""Helpers: a wall-clock profiler, a SIGINT guard, the rotated-box
+corner helper and the metrics POST.
 
 Copies of ``odtk_tpu/utils.py:Profiler``, ``ignore_sigint`` and
-``rotate_box`` (the port imports nothing of ``odtk_tpu``).
+``rotate_box`` (the port imports nothing of ``odtk_tpu``), and
+``post_metrics`` written with ``urllib`` in place of ``requests``.
 """
 
 import signal
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
+import warnings
 from contextlib import contextmanager
 
 import numpy as np
@@ -88,3 +93,30 @@ class Profiler:
     def means(self):
         return {n: lap.total / lap.laps if lap.laps else 0.0
                 for n, lap in self._laps.items()}
+
+
+POST_TIMEOUT_S = 10     # a collector that hangs must not hold training
+
+
+def post_metrics(url, metrics):
+    """Push metric key/value pairs to an HTTP collector
+    (``odtk_tpu/utils.py:post_metrics``).
+
+    Each metric posts as form data (``time``, ``metric``, ``value``) with
+    a nanosecond timestamp taken once for the whole batch. An error
+    status is ignored, as ``requests.post`` ignores it; any other failure
+    (collector down, no route, timeout) is reduced to a warning: metrics
+    must never take down training.
+    """
+    stamp = int(time.time() * 1e9)
+    try:
+        for name, value in metrics.items():
+            data = urllib.parse.urlencode(
+                {'time': stamp, 'metric': name, 'value': value}).encode()
+            try:
+                urllib.request.urlopen(url, data=data,
+                                       timeout=POST_TIMEOUT_S).close()
+            except urllib.error.HTTPError as e:
+                e.close()
+    except Exception as e:  # noqa: BLE001
+        warnings.warn('posting metrics to {} failed: {}'.format(url, e))

@@ -298,18 +298,21 @@ def test_cli_rotated_train_then_infer(tmp_path):
 
 
 def test_unported_flag_names_its_roadmap_item():
-    """A flag still listed as not ported raises and names its item; the
-    rotated flags parse and do not."""
-    args = cli.parse(['train', 'm.pth', '--annotations', 'a.json',
-                      '--logdir', 'logs'])
+    """A flag still not ported (--num-hosts > 1) raises and names its
+    item; the train flags of the JAX CLI, the rotated ones among them,
+    parse and do not."""
+    args = cli.parse(['--num-hosts', '2', 'train', 'm.pth',
+                      '--annotations', 'a.json'])
     with pytest.raises(NotImplementedError,
-                       match=r'--logdir is not ported yet \(ROADMAP Queue 1 '
-                             r'item 9'):
+                       match=r'--num-hosts > 1: .*\(ROADMAP Queue 1 item 7'):
         cli._refuse_unported(args)
-    args = cli.parse(['train', 'm.pth', '--annotations', 'a.json',
+    args = cli.parse(['train', 'm.ckpt', '--annotations', 'a.json',
                       '--rotated-bbox', '--absolute-angle',
-                      '--anchor-angles', '-0.5', '0', '0.5'])
+                      '--anchor-angles', '-0.5', '0', '0.5',
+                      '--logdir', 'logs', '--profile-dir', 'trace',
+                      '--post-metrics', 'http://127.0.0.1:1/',
+                      '--backbone-weights', 'w.pth'])
     cli._refuse_unported(args)
     assert args.rotated_bbox and args.anchor_angles == [-0.5, 0.0, 0.5]
-    assert not any(k in cli._NOT_PORTED for k in
-                   ('rotated_bbox', 'absolute_angle', 'anchor_angles'))
+    assert (args.logdir, args.profile_dir, args.backbone_weights) == (
+        'logs', 'trace', ['w.pth'])
