@@ -11,10 +11,12 @@ classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
 ``tests/synth.py``, resize 800 / max 1333, bf16): train, infer, and
 export with infer on the engines, axis-aligned and rotated; then the
 same for ResNet34C4, MobileNetV2FPN and ResNet50FPN + MobileNetV2FPN
-in one model; and a ResNet50FPN run's files (``.ckpt`` checkpoints,
-backbone weights, TensorBoard scalars, a trace, metrics). It holds each
-kernel against its plain PyTorch version at the shapes those paths give
-it, and prints each phase's wall seconds:
+in one model; a ResNet50FPN run's files (``.ckpt`` checkpoints,
+backbone weights, TensorBoard scalars, a trace, metrics); and the JAX
+CLI's inert layout switches (``--fused-stem / --no-fused-stem``,
+``--wpack-layer1``). It holds each kernel against its plain PyTorch
+version at the shapes those paths give it, and prints each phase's wall
+seconds:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
@@ -127,7 +129,12 @@ it, and prints each phase's wall seconds:
      equal); the event file's three scalars equal the logged losses, the
      trace holds the stem and loss kernels' launches of its two steps,
      the collector got the four keys; the ``.ckpt`` and ``.pth`` write
-     and read seconds and bytes with the momentum.
+     and read seconds and bytes with the momentum;
+ 27. fused-stem-flags (``fused_stem_phase``, on phase 4's checkpoint):
+     ``infer`` with ``--no-fused-stem``, ``--fused-stem`` and
+     ``--wpack-layer1`` each prints its one line, launches NMS and the
+     primal stem kernel once a batch as the default run does, and gives
+     the default's detections bit for bit.
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -882,6 +889,60 @@ def ckpt_phase(root, img_dir, ann, device, smi):
           f'largest difference {diff}; {time.perf_counter() - wall:.1f} s '
           'wall', flush=True)
     return {'train': launches, 'infer': infer_launches}
+
+
+def fused_stem_phase(root, ckpt, img_dir, ann):
+    """The CLI's inert layout switches, ``--fused-stem / --no-fused-stem``
+    and ``--wpack-layer1``, on ``infer`` of the train phase's ResNet50FPN
+    checkpoint (batch 2), each run with the counts set to 0 just before
+    it and read just after: each prints its one line, launches NMS (row
+    1) and the primal stem kernel (row 2) once a batch as the default
+    run does, and gives the default's detections bit for bit. Returns the
+    launches of rows 1 and 2 over the phase."""
+    import contextlib
+    import io
+
+    from odtk_tpu_torch import main as cli
+    from odtk_tpu_torch.ops.kernels import nms, stem
+
+    counted = {'nms': nms.nms, 'stem': stem.bn_relu_pool}
+    total = dict.fromkeys(counted, 0)
+    dets = {}
+    for flag in (None, '--no-fused-stem', '--fused-stem', '--wpack-layer1'):
+        label = f'infer {flag or ""}'.strip()
+        det = os.path.join(root, f'detections_{label.replace(" ", "")}.json')
+        for k in counted.values():
+            k.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = cli.main(['infer', ckpt, '--images', img_dir,
+                               '--annotations', ann, '--batch', '2',
+                               '--threshold', '0.001', '--output', det]
+                              + ([flag] if flag else []))
+        got = {n: k.launches for n, k in counted.items()}
+        batches = len(result['batch_ms'])
+        if got != dict.fromkeys(counted, batches):
+            raise AssertionError(f'fused-stem-flags {label}: launches {got} '
+                                 f'in {batches} batches')
+        for n, v in got.items():
+            total[n] += v
+        said = [line for line in out.getvalue().splitlines()
+                if ' ignored: ' in line and line.startswith('--')]
+        want = [flag.replace('--no-', '--')] if flag else []
+        if [line.split()[0] for line in said] != want:
+            raise AssertionError(f'fused-stem-flags {label}: printed {said}')
+        dets[label] = _detections(det)
+        print(f'fused-stem-flags {label}: launches {got}, {said}', flush=True)
+    base = dets['infer']
+    for label, got in dets.items():
+        if got != base:
+            raise AssertionError(f'fused-stem-flags {label}: {len(got)} '
+                                 f'detections differ from the default\'s '
+                                 f'{len(base)}')
+    print(f'fused-stem-flags: {len(base)} detections in each run, equal to '
+          f'the default\'s bit for bit; launches over the phase {total}',
+          flush=True)
+    return total
 
 
 # levels and ResNet stems (the stem kernels' users) of each backbone the
@@ -2045,6 +2106,8 @@ def main():
                                                   device)
         with phase('ckpt'):
             ckpt_launches = ckpt_phase(root, img_dir, ann, device, smi)
+        with phase('fused-stem-flags'):
+            flag_launches = fused_stem_phase(root, ckpt, img_dir, ann)
         other = {name: other_phases(name, root, img_dir, ann, device)
                  for name in OTHER_MODELS}
 
@@ -2090,12 +2153,14 @@ def main():
     kernels = [
         _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
              infer_launches['nms'] + ckpt_launches['infer']['nms']
+             + flag_launches['nms']
              + sum(o['infer']['nms'] for o in other.values()),
              nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
              infer_launches['stem'] + rot_infer_launches['stem']
              + ckpt_launches['infer']['stem'] + engine_stem + rot_engine_stem
+             + flag_launches['stem']
              + sum(o['infer']['stem'] + o['engine_stem']
                    for o in other.values()),
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(

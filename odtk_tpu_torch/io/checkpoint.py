@@ -125,8 +125,13 @@ def peek_iteration(filename):
         view = memoryview(mm)
         try:
             return int(_restore(view, filename).get('iteration', 0))
+        except ValueError as e:
+            # raised below, once the traceback that holds the decoder's
+            # views of the map is gone: release() refuses while they live
+            error = str(e)
         finally:
             view.release()
+    raise ValueError(error)
 
 
 def load(filename, device='cpu', rotated_bbox=False):

@@ -15,7 +15,10 @@ backbones), ``--logdir`` (TensorBoard scalars), ``--profile-dir`` (a
 ``torch.profiler`` trace) and ``--post-metrics``. What is not ported
 yet (``--num-hosts`` > 1) raises and names the ROADMAP item, and
 ``--feed yuv420`` is not ported; ``--with-dali`` and ``--with-apex`` are
-compatibility no-ops, as in the JAX CLI.
+compatibility no-ops, as in the JAX CLI. So are ``--fused-stem /
+--no-fused-stem`` and ``--wpack-layer1 / --no-wpack-layer1``: in the
+JAX CLI they pick between two TPU layouts of the same function, and here
+the ResNet stem always runs its CUDA kernel and layer1 as it is.
 """
 
 import argparse
@@ -35,6 +38,20 @@ def _add_common(parser):
                         'host loader is always on)', action='store_true')
     parser.add_argument('--with-apex', help='(compat no-op: bf16 mixed '
                         'precision is the default)', action='store_true')
+
+
+def _add_stem_flags(parser):
+    """The JAX CLI's two layout switches (``odtk_tpu/main.py:276-290``)."""
+    parser.add_argument('--fused-stem', action=argparse.BooleanOptionalAction,
+                        default=None, dest='fused_stem',
+                        help='(compat no-op: the ResNet stem\'s BN + ReLU + '
+                             'max-pool always runs its CUDA kernel, which '
+                             'computes the same function)')
+    parser.add_argument('--wpack-layer1',
+                        action=argparse.BooleanOptionalAction, default=None,
+                        dest='wpack_layer1',
+                        help='(compat no-op: width-pair packing is a TPU '
+                             'layout; layer1 runs as it is)')
 
 
 def parse(args):
@@ -172,6 +189,7 @@ def parse(args):
                     help='write a torch.profiler trace of iterations start '
                          '+ 10 to start + 20 to this directory')
     _add_common(pt)
+    _add_stem_flags(pt)
 
     pi = subparsers.add_parser('infer', help='run inference')
     pi.add_argument('model', type=str,
@@ -203,6 +221,7 @@ def parse(args):
                     help='letterbox inputs to a fixed canvas: one value for '
                          'square, or height width')
     _add_common(pi)
+    _add_stem_flags(pi)
 
     pe = subparsers.add_parser('export', help='export a model into an '
                                'inference engine')
@@ -252,6 +271,7 @@ def parse(args):
     pe.add_argument('--detections', metavar='num', type=int, default=None,
                     help='max detections emitted per image')
     _add_common(pe)
+    _add_stem_flags(pe)
     return parser.parse_args(args)
 
 
@@ -312,6 +332,12 @@ def run(args, model, state):
 
     if model.rotated_bbox:
         args.rotated_bbox = True
+    if args.fused_stem is not None:
+        print('--fused-stem ignored: the ResNet stem always runs its CUDA '
+              'kernel, which computes the same function')
+    if args.wpack_layer1 is not None:
+        print('--wpack-layer1 ignored: width-pair packing is a TPU layout; '
+              'layer1 runs as it is')
     if args.with_apex:
         print('--with-apex ignored: bf16 mixed precision is the default '
               '(use --full-precision for fp32)')

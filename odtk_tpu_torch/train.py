@@ -296,8 +296,11 @@ def train(model, state, path, annotations, val_path, val_annotations,
 
     def drain_pending():
         nonlocal applied
-        for it_idx, cl_dev, bl_dev, skipped in pending:
+        for it_idx, shape, cl_dev, bl_dev, skipped in pending:
             cl, bl = float(cl_dev), float(bl_dev)
+            if os.environ.get('ODTK_DEBUG'):
+                print(f'  debug it{it_idx}: cl={cl:.4f} bl={bl:.4f} '
+                      f'shape={tuple(shape)}', flush=True)
             applied += 1 - int(skipped)
             cls_losses.append(cl)
             box_losses.append(bl)
@@ -327,7 +330,7 @@ def train(model, state, path, annotations, val_path, val_annotations,
             clock.mark()
             profiler.stop('fw')
             profiler.start('bw')
-            pending.append((iteration, cls_loss, box_loss,
+            pending.append((iteration, images.shape, cls_loss, box_loss,
                             optimizer.found_inf))
             if len(pending) >= max(1, sync_every) \
                     or iteration + 1 >= iterations:

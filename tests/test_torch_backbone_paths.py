@@ -25,6 +25,7 @@ from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 
 from synth import make_dataset
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 SIZE = 128

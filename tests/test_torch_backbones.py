@@ -27,6 +27,7 @@ from odtk_tpu_torch import quantize
 from odtk_tpu_torch.backbones.layers import QuantConv2d
 from odtk_tpu_torch.io.jax_bridge import module_name, state_dict_from_jax
 from odtk_tpu_torch.model import Model
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 SIZE = 128

@@ -32,6 +32,7 @@ from odtk_tpu_torch.ops import rotate_boxes
 from odtk_tpu_torch.ops.iou_rotated import _corner_lists, clip_iou
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
 from rotated_cases import degenerate_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 SKIP_MARGIN = 0.25          # kSkipMargin of csrc/match_rotated.cu
 SKIP_LIMIT = 8192.0         # kSkipLimit

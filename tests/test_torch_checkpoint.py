@@ -33,6 +33,7 @@ from odtk_tpu_torch.io.jax_bridge import flax_key, state_dict_from_jax
 from odtk_tpu_torch.model import Model
 
 from synth import make_dataset
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 ANGLES = [-0.5, 0.0, 0.5]

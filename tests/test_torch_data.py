@@ -22,6 +22,7 @@ from odtk_tpu_torch.data import native
 
 from synth import make_dataset
 from torch_decode_route import decode_route  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope='module')

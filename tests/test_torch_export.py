@@ -31,6 +31,7 @@ from odtk_tpu_torch import main as cli
 from odtk_tpu_torch.export import ENGINE_HEADER, Engine, export_model
 from odtk_tpu_torch.io.jax_bridge import state_dict_from_jax
 from odtk_tpu_torch.model import Model
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -289,7 +290,7 @@ def test_cli_export_then_infer_without_jax(tmp_path):
     code = _CLI_RUN.format(tests=os.path.join(REPO, 'tests'),
                            root=str(tmp_path), ckpt=ckpt, engine=engine_path,
                            det=det, table=table)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, '-c', code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)

@@ -19,6 +19,7 @@ import torch
 
 from odtk_tpu.ops.pallas import focal_sum_fused
 from odtk_tpu_torch.ops.kernels import focal
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (seed, b, h, w, a, k): the JAX tests' cases, the last with 6 rows, a
 # multiple of no block size (the padded-rows case)

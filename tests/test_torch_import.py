@@ -6,6 +6,7 @@ import numpy as np
 
 from odtk_tpu.model import Model
 from odtk_tpu.io.torch_import import state_dict_to_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_reference_style_keys_import():

@@ -21,6 +21,7 @@ from odtk_tpu.ops.pallas.focal_kernel import detection_loss_sums_fused
 from odtk_tpu_torch import model as model_mod
 from odtk_tpu_torch.model import Model
 from odtk_tpu_torch.ops.kernels import loss as kloss
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 

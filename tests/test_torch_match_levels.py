@@ -36,6 +36,7 @@ from odtk_tpu_torch.ops.iou_rotated import (_corner_lists, clip_iou,
                                             match_inputs, match_inputs_levels,
                                             pack_active)
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
+from torch_threads import one_torch_thread  # noqa: F401
 
 SKIP_MARGIN = 0.25          # kSkipMargin of csrc/match_rotated.cu
 SKIP_LIMIT = 8192.0         # kSkipLimit

@@ -23,6 +23,7 @@ from odtk_tpu_torch.io.jax_bridge import state_dict_from_jax
 from odtk_tpu_torch.model import Model
 
 from synth import make_dataset
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -194,7 +195,7 @@ def test_port_never_imports_jax():
             'new = {m.split(".")[0] for m in set(sys.modules) - before}\n'
             'print(sorted(new & {"jax", "flax", "jaxlib", "optax",\n'
             '                    "odtk_tpu"}))\n')
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -25,6 +25,7 @@ from odtk_tpu.ops.pallas import nms_kernel as jax_nms_kernel
 from odtk_tpu_torch.ops.kernels.nms import nms_plain
 
 from test_torch_nms_bitmask import WORD, _rank_order, _scan
+from torch_threads import one_torch_thread  # noqa: F401
 
 NDET = 100
 

@@ -25,6 +25,7 @@ from odtk_tpu.ops.nms import nms_rotated as jax_nms_rotated
 from odtk_tpu_torch.ops.iou_rotated import (_corner_lists, clip_iou,
                                             sincos_box_corners)
 from odtk_tpu_torch.ops.kernels.nms_rotated import nms_rotated_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 SKIP_MARGIN = 0.25          # kSkipMargin of csrc/nms_rotated.cu
 WORD = 64                   # ranks per mask word

@@ -27,6 +27,7 @@ from odtk_tpu_torch.ops.kernels import nms as knms
 from odtk_tpu_torch.ops.kernels import stem as kstem
 
 from test_torch_kernels import nms_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture()

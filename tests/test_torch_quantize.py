@@ -33,6 +33,7 @@ from odtk_tpu_torch.model import Model
 
 from synth import make_dataset
 from test_torch_export import CONFIG, images, port_model, spread_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope='module')

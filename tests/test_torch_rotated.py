@@ -32,6 +32,7 @@ from odtk_tpu_torch.ops import (box2delta_rotated,
                                 snap_to_anchors_rotated_batched)
 from odtk_tpu_torch.ops import iou_rotated
 from odtk_tpu_torch.ops.kernels import loss as kloss
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 RATIOS = [1.0, 2.0, 0.5]

@@ -43,6 +43,7 @@ from test_torch_rotated import (ANGLES, CLASSES, RATIOS, SCALES,
                                 _t)
 from test_torch_rotated_train import _port, rotated_jax_variables
 from torch_decode_route import decode_route  # noqa: F401 (a fixture)
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -275,7 +276,7 @@ def test_cli_rotated_train_then_infer(tmp_path):
     det = str(tmp_path / 'det.json')
     code = _CLI_RUN.format(tests=os.path.join(REPO, 'tests'),
                            root=str(tmp_path), ckpt=ckpt, det=det)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, '-c', code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)

@@ -32,6 +32,7 @@ from odtk_tpu_torch.ops import iou_rotated, rotate_boxes
 from odtk_tpu_torch.ops.assign import level_anchors
 
 from synth import make_dataset
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 ANGLES = [-np.pi / 6, 0, np.pi / 6]

@@ -31,6 +31,7 @@ from odtk_tpu.ops.pallas import stem_kernel as jax_stem
 from odtk_tpu_torch.ops.kernels import stem as kstem
 
 from test_torch_kernels import _equal_nan
+from torch_threads import one_torch_thread  # noqa: F401
 
 STRIP_ROWS = 8      # kStripRows of csrc/stem_pool.cu
 GROUP_COLS = 4      # kGroupCols

@@ -39,6 +39,7 @@ from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import stem as kstem
 
 from synth import make_dataset
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = 4
@@ -450,7 +451,7 @@ def test_cli_train_then_infer_without_jax(tmp_path):
     code = _CLI_RUN.format(tests=os.path.join(REPO, 'tests'),
                            root=str(tmp_path), ckpt=ckpt,
                            det=str(tmp_path / 'det.json'))
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, '-c', code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)

@@ -39,6 +39,7 @@ from odtk_tpu_torch.io.torch_import import load_backbone_weights
 from odtk_tpu_torch.model import Model
 
 from synth import make_dataset
+from torch_threads import one_torch_thread  # noqa: F401
 
 CLASSES = 3
 # torchvision's classifier of each network, which both loaders drop
