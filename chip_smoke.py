@@ -12,11 +12,12 @@ classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
 export with infer on the engines, axis-aligned and rotated; then the
 same for ResNet34C4, MobileNetV2FPN and ResNet50FPN + MobileNetV2FPN
 in one model; a ResNet50FPN run's files (``.ckpt`` checkpoints,
-backbone weights, TensorBoard scalars, a trace, metrics); and the JAX
+backbone weights, TensorBoard scalars, a trace, metrics); the JAX
 CLI's inert layout switches (``--fused-stem / --no-fused-stem``,
-``--wpack-layer1``). It holds each kernel against its plain PyTorch
-version at the shapes those paths give it, and prints each phase's wall
-seconds:
+``--wpack-layer1``); and training and inference in a data-parallel
+process group (NCCL, world 1: the machine has one card). It holds each
+kernel against its plain PyTorch version at the shapes those paths give
+it, and prints each phase's wall seconds:
 
   1. card: the device name and power limit;
   2. stem: the primal BN + ReLU + max-pool kernel vs plain at
@@ -134,7 +135,16 @@ seconds:
      ``infer`` with ``--no-fused-stem``, ``--fused-stem`` and
      ``--wpack-layer1`` each prints its one line, launches NMS and the
      primal stem kernel once a batch as the default run does, and gives
-     the default's detections bit for bit.
+     the default's detections bit for bit;
+ 28. ddp (``ddp_phase``): data parallel in-process at world 1 over NCCL
+     (one card): ``train()`` of phase 4's model, seed and data for 5
+     steps twice without a group and once in it, the group's run equal
+     bit for bit to the first where the two without are (cuDNN
+     deterministic in the phase; else within their gap), the stem and
+     loss kernels launched as often; ``infer`` in the group on phase 4's
+     checkpoint and phase 11's bf16 engine, equal bit for bit to phases 7
+     and 11; the world size, the gradient all-reduce's device time a
+     step and its bytes beside the card's name and power limit.
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -941,6 +951,203 @@ def fused_stem_phase(root, ckpt, img_dir, ann):
                                  f'{len(base)}')
     print(f'fused-stem-flags: {len(base)} detections in each run, equal to '
           f'the default\'s bit for bit; launches over the phase {total}',
+          flush=True)
+    return total
+
+
+DDP_STEPS = 5
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms, and PyTorch's where an op has
+    one, for the phase's train runs; restored after."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _ddp_train(root, img_dir, ann, device, label, counted, profile=False):
+    """``train()`` of ResNet50FPN at the train phase's seed, data, batch,
+    sizes, augmentation and lr for DDP_STEPS steps, the loader on one
+    thread (its augmentation draws then come in one order). Returns the
+    losses, the parameters after the last step (on the host), the
+    launches of ``counted``, and with ``profile`` the profile and the
+    last step's gradients (else None, None)."""
+    import functools
+
+    from odtk_tpu_torch import train as train_mod
+    from odtk_tpu_torch.data import DataIterator
+    from odtk_tpu_torch.model import Model
+
+    random.seed(0)                            # the train phase's init seed
+    model = Model('ResNet50FPN', classes=80)
+    model.initialize(random.randint(0, 2 ** 31 - 1))
+    for k in counted.values():
+        k.launches = 0
+    train_mod.DataIterator = functools.partial(DataIterator, num_threads=1)
+    prof, grads = None, None
+    try:
+        with contextlib.ExitStack() as stack:
+            if profile:
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]))
+            result = train_mod.train(
+                model, {'path': os.path.join(root, f'ddp_{label}.pth')},
+                img_dir, ann, img_dir, None, 800, 1333, [800, 800],
+                TRAIN_BATCH, DDP_STEPS, 0, TRAIN_LR, WARMUP, [DDP_STEPS],
+                0.1, mixed_precision=True, verbose=False,
+                augment_brightness=0.002, augment_contrast=0.002,
+                augment_hue=0.0002, augment_saturation=0.002, device=device)
+            torch.cuda.synchronize(device)
+    finally:
+        train_mod.DataIterator = DataIterator
+    params = {k: v.detach().cpu() for k, v in
+              model.module.state_dict().items()}
+    if profile:
+        grads = [p.grad for p in model.module.parameters()
+                 if p.grad is not None]
+    return (result['losses'], params,
+            {n: k.launches for n, k in counted.items()}, prof, grads)
+
+
+def _largest_gap(a, b):
+    """The largest |a - b| over the losses and over the parameters."""
+    loss_gap = max(abs(x - y) for p, q in zip(a[0], b[0])
+                   for x, y in zip(p[1:], q[1:]))
+    param_gap = max((x - y).abs().max().item()
+                    for x, y in zip(a[1].values(), b[1].values()))
+    return loss_gap, param_gap
+
+
+def ddp_phase(root, img_dir, ann, ckpt, device, smi):
+    """Data parallel on the card, in-process at world 1 over NCCL
+    (``parallel.init_distributed``; a one-card machine has no world 2).
+    Train: DDP_STEPS steps of ``train()`` twice without a group (A, B),
+    then once in the group (C, profiled): where A and B are equal bit
+    for bit (cuDNN deterministic inside the phase), C must equal A bit
+    for bit, losses and parameters; else C must be within A and B's
+    largest gap, printed beside it. The stem's and the loss's kernels
+    launch as often in C as in A. Infer: ``infer`` in the group on the
+    train phase's checkpoint and on the export phase's bf16 engine, each
+    equal bit for bit to that phase's detections, NMS and the stem
+    launched once a batch. Prints the world size, the gradient
+    all-reduce's device time a step (NCCL's kernels in C's trace) and
+    its bytes, and one all-reduce of C's gradients timed with CUDA
+    events. Returns the launches of rows 1-5 over the phase."""
+    import torch.distributed as dist
+
+    from odtk_tpu_torch import main as cli
+    from odtk_tpu_torch import parallel
+    from odtk_tpu_torch.ops.kernels import loss, nms, stem
+
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from torch_ranks import free_port
+
+    counted = {'det_loss': loss.detection_loss_fwd_kernel,
+               'det_loss_bwd': loss.detection_loss_bwd_kernel,
+               'stem_idx': stem.bn_relu_pool_idx,
+               'stem_bwd': stem.bn_relu_pool_bwd}
+    total = dict.fromkeys([*counted, 'nms', 'stem'], 0)
+    with _deterministic():
+        runs = [_ddp_train(root, img_dir, ann, device, label, counted)
+                for label in ('a', 'b')]
+    bitwise = runs[0][0] == runs[1][0] and all(
+        torch.equal(x, y) for x, y in zip(runs[0][1].values(),
+                                          runs[1][1].values()))
+    spread = _largest_gap(runs[0], runs[1])
+
+    rank, world = parallel.init_distributed(f'127.0.0.1:{free_port()}', 1,
+                                            0, device='cuda')
+    try:
+        if (dist.get_backend(), parallel.world_info()) != ('nccl', (0, 1)):
+            raise AssertionError(f'ddp: group {dist.get_backend()} '
+                                 f'{parallel.world_info()}')
+        with _deterministic():
+            runs.append(_ddp_train(root, img_dir, ann, device, 'c', counted,
+                                   profile=True))
+        losses, _, launches, prof, grads = runs[2]
+        gap = _largest_gap(runs[0], runs[2])
+        if bitwise and gap != (0.0, 0.0):
+            raise AssertionError(f'ddp: the run in the group is off the run '
+                                 f'without by {gap} (losses, parameters); '
+                                 'two runs without are bit-equal')
+        if not bitwise and (gap[0] > spread[0] or gap[1] > spread[1]):
+            raise AssertionError(f'ddp: the run in the group is off the run '
+                                 f'without by {gap}, beyond the spread of two '
+                                 f'runs without {spread}')
+        if launches != runs[0][2]:
+            raise AssertionError(f'ddp: launches {launches} in the group, '
+                                 f'{runs[0][2]} without')
+        for run in runs:
+            for n, v in run[2].items():
+                total[n] += v
+        nccl = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and 'nccl' in e.name.lower()]
+        nccl_ms = sum(e.time_range.elapsed_us() for e in nccl) / 1e3
+        # the ranges hold the flatten, the collective and the copy back:
+        # a step's gradients and its fg counts (in the loss)
+        (reduce_row,) = [
+            e for e in prof.key_averages() if e.key == 'all_reduce_sum'
+            and e.device_type == torch.autograd.DeviceType.CPU]
+        range_ms = reduce_row.device_time_total / 1e3 / DDP_STEPS
+        # the step's one all-reduce: the gradients and the two losses
+        grads.append(torch.zeros(2, device=device))
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        reduce_ms = _median_ms(lambda: parallel.all_reduce_sum(grads))
+        del grads, runs[2:]
+
+        infer_launches = {}
+        for label, path, want, flags in (
+                ('ckpt', ckpt, 'detections_axis_e2e.json',
+                 ['--threshold', '0.001']),
+                ('engine', os.path.join(root, 'axis_export_bf16.engine'),
+                 'detections_axis_export_bf16.json', [])):
+            det = os.path.join(root, f'detections_ddp_{label}.json')
+            for k in (nms.nms, stem.bn_relu_pool):
+                k.launches = 0
+            result = cli.main(['infer', path, '--images', img_dir,
+                               '--annotations', ann, '--batch', '2',
+                               '--output', det] + flags)
+            got = {'nms': nms.nms.launches,
+                   'stem': stem.bn_relu_pool.launches}
+            batches = len(result['batch_ms'])
+            if got != {'nms': batches, 'stem': batches}:
+                raise AssertionError(f'ddp infer {label}: launches {got} '
+                                     f'over {batches} batches')
+            if _detections(det) != _detections(os.path.join(root, want)):
+                raise AssertionError(f'ddp infer {label}: detections differ '
+                                     f'from {want}')
+            for n, v in got.items():
+                total[n] += v
+            infer_launches[label] = (got, len(_detections(det)))
+    finally:
+        dist.destroy_process_group()
+    print(f'ddp ({smi}): world {world} over NCCL, rank {rank}; {DDP_STEPS} '
+          f'steps x 3 (two without a group, one in it): runs without '
+          f'bit-equal {bitwise}, their largest gap (losses, parameters) '
+          f'{spread}, the group run\'s gap to the first {gap}; loss first '
+          f'{losses[0]} last '
+          f'{losses[-1]}; train launches a run {launches}; gradient '
+          f'all-reduce {grad_bytes} bytes a step, NCCL device time '
+          f'{nccl_ms / DDP_STEPS:.4f} ms a step ({len(nccl)} kernels in '
+          f'{DDP_STEPS} steps), device time of the all_reduce_sum ranges '
+          f'(flatten, collective, copy back; the gradients and the fg '
+          f'counts, {reduce_row.count} calls) {range_ms:.4f} ms a step, one '
+          f'all_reduce_sum of the gradients {reduce_ms:.4f} ms (CUDA events, '
+          f'median of {RUNS}); infer '
+          f'(launches, detections) {infer_launches}, equal to the e2e and '
+          f'export phases\' bit for bit; launches over the phase {total}',
           flush=True)
     return total
 
@@ -2108,6 +2315,8 @@ def main():
             ckpt_launches = ckpt_phase(root, img_dir, ann, device, smi)
         with phase('fused-stem-flags'):
             flag_launches = fused_stem_phase(root, ckpt, img_dir, ann)
+        with phase('ddp'):
+            ddp_launches = ddp_phase(root, img_dir, ann, ckpt, device, smi)
         other = {name: other_phases(name, root, img_dir, ann, device)
                  for name in OTHER_MODELS}
 
@@ -2153,14 +2362,14 @@ def main():
     kernels = [
         _row('nms', csrc + 'nms.cu', pallas + 'nms_kernel.py:96',
              infer_launches['nms'] + ckpt_launches['infer']['nms']
-             + flag_launches['nms']
+             + flag_launches['nms'] + ddp_launches['nms']
              + sum(o['infer']['nms'] for o in other.values()),
              nms_rows['decode']),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
              infer_launches['stem'] + rot_infer_launches['stem']
              + ckpt_launches['infer']['stem'] + engine_stem + rot_engine_stem
-             + flag_launches['stem']
+             + flag_launches['stem'] + ddp_launches['stem']
              + sum(o['infer']['stem'] + o['engine_stem']
                    for o in other.values()),
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
@@ -2173,22 +2382,24 @@ def main():
              pallas + 'stem_kernel.py:117',
              train_launches['stem_idx'] + rot_launches['stem_idx']
              + multi_rot_launches['stem_idx']
-             + ckpt_launches['train']['stem_idx']
+             + ckpt_launches['train']['stem_idx'] + ddp_launches['stem_idx']
              + sum(o['train']['stem_idx'] for o in other.values()),
              dict(fwd_rows[bf16], fp32=_times(fwd_rows[torch.float32]))),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:157',
              train_launches['stem_bwd'] + rot_launches['stem_bwd']
              + multi_rot_launches['stem_bwd']
-             + ckpt_launches['train']['stem_bwd']
+             + ckpt_launches['train']['stem_bwd'] + ddp_launches['stem_bwd']
              + sum(o['train']['stem_bwd'] for o in other.values()),
              dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
              pallas + 'focal_kernel.py:186',
-             train_launches['det_loss'] + ckpt_launches['train']['det_loss'],
+             train_launches['det_loss'] + ckpt_launches['train']['det_loss']
+             + ddp_launches['det_loss'],
              dict(loss_row, launches_bwd=train_launches['det_loss_bwd']
-                  + ckpt_launches['train']['det_loss_bwd'])),
+                  + ckpt_launches['train']['det_loss_bwd']
+                  + ddp_launches['det_loss_bwd'])),
     ]
     for name in OTHER_MODELS:
         o = other[name]

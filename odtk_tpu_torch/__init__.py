@@ -13,8 +13,10 @@ PyTorch version beside it for CPU tensors and tests.
 Covered so far, axis-aligned and rotated, with every backbone of the
 JAX registry (the ResNet/ResNeXt FPNs, MobileNetV2FPN, ResNet18C4 and
 ResNet34C4) and models of several backbones: inference
-(``odtk-tpu-torch train``, with every flag of the JAX CLI at world 1)
-and export (``odtk-tpu-torch export``). Checkpoints are ``.pth`` or
+(``odtk-tpu-torch infer``) and training (``odtk-tpu-torch train``, with
+every flag of the JAX CLI), both data parallel at world > 1
+(``parallel/``: one process a card over NCCL, gloo on the CPU), and
+export (``odtk-tpu-torch export``). Checkpoints are ``.pth`` or
 ``.ckpt`` (flax msgpack, read and written without flax), and the
 momentum carries over both ways through a ``.ckpt`` or the JAX
 package's optax bytes; a ``.pth`` written here holds a ``torch.optim``

@@ -168,16 +168,32 @@ class DataIterator:
 
         emitted = 0
         pending = {}
-        while emitted < len(batches):
-            if emitted in pending:
-                item = pending.pop(emitted)
-                if isinstance(item, Exception):
-                    raise item
-                yield item
-                emitted += 1
-                continue
-            bi, item = out_q.get()
-            pending[bi] = item
+        try:
+            while emitted < len(batches):
+                if emitted in pending:
+                    item = pending.pop(emitted)
+                    if isinstance(item, Exception):
+                        raise item
+                    yield item
+                    emitted += 1
+                    continue
+                bi, item = out_q.get()
+                pending[bi] = item
+        finally:
+            # an epoch left early stops its workers before the consumer
+            # goes on: none is left making batches, and drawing from the
+            # global random, behind the caller's back
+            while True:
+                try:
+                    work_q.get_nowait()
+                except queue.Empty:
+                    break
+            for t in threads:
+                while t.is_alive():
+                    try:
+                        out_q.get(timeout=0.05)
+                    except queue.Empty:
+                        pass
 
     def _make_batch(self, batch_ids):
         if not self.training:

@@ -277,16 +277,19 @@ class Engine:
     engine's device. A batch is padded up to the nearest profile, and one
     larger than the largest profile runs in profile-sized chunks."""
 
-    def __init__(self, meta, blobs, variables, scale_table=None):
+    def __init__(self, meta, blobs, variables, scale_table=None,
+                 device=None):
         self.meta = meta
         self.blobs = blobs
         self.variables = {k: v.detach().cpu() for k, v in variables.items()}
         self.scale_table = scale_table
-        self.device = torch.device(meta['device'])
+        self.device = torch.device(device or meta['device'])
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('this engine was exported on CUDA and no CUDA '
                                'device is available: export it again on '
                                'the device it should run on')
+        if self.device.type == 'cuda' and self.device.index is None:
+            self.device = torch.device('cuda', torch.cuda.current_device())
         self._programs = {}
         self._device_variables = None
 
@@ -329,8 +332,9 @@ class Engine:
 
     @classmethod
     def load(cls, path, device=None):
-        """The engine in ``path``. ``device``, when given, must be of the
-        device type the engine was exported on."""
+        """The engine in ``path``, on ``device`` when given (a card of a
+        data-parallel run: its rank's), which must be of the device type
+        the engine was exported on."""
         with open(path, 'rb') as f:
             if f.read(len(ENGINE_HEADER)) != ENGINE_HEADER:
                 raise ValueError(f'{path} is not an odtk-tpu-torch engine')
@@ -348,7 +352,8 @@ class Engine:
             table = _read_chunk(f)
             blobs = {str(b): _read_chunk(f) for b in meta['batches']}
         return cls(meta, blobs, variables,
-                   scale_table=json.loads(table) if table else None)
+                   scale_table=json.loads(table) if table else None,
+                   device=device)
 
     # ---------------------------------------------------------------- run
     def program(self, batch):
@@ -356,6 +361,13 @@ class Engine:
         key = str(batch)
         if key not in self._programs:
             exported = torch.export.load(io.BytesIO(self.blobs[key]))
+            if self.device.type == 'cuda':
+                # the program names the card it was exported on; run it
+                # on this engine's
+                from torch.export.passes import move_to_device_pass
+                exported = move_to_device_pass(
+                    exported, {f'cuda:{i}': str(self.device)
+                               for i in range(torch.cuda.device_count())})
             self._programs[key] = exported.module()
         return self._programs[key]
 

@@ -1,7 +1,12 @@
-"""Inference / evaluation workflow on one device.
+"""Inference / evaluation workflow.
 
-Counterpart of ``odtk_tpu/infer.py`` for one process (``world == 1``),
-on a checkpoint model or an exported ``Engine`` (``export.py``). Batches
+Counterpart of ``odtk_tpu/infer.py``, on a checkpoint model or an
+exported ``Engine`` (``export.py``), on one device or, in a process
+group (``parallel``), on one device a process: each rank runs its shard
+of the images, the results are gathered after the last batch
+(``parallel.all_gather_host``) and rank 0 alone de-duplicates them by
+image id, writes the JSON and evaluates; the other ranks return no
+stats. Batches
 come from the port's copy of the ``DataIterator``: for a model on the u8
 eval feed, for an engine on the f32 feed (normalized on the host) at the
 engine's fixed input size, the contract its programs were exported with
@@ -28,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .data import CocoEvaluator, DataIterator, RotatedDataIterator
 from .utils import rotate_box
 
@@ -60,10 +66,11 @@ class BatchClock:
 def infer(model, path, detections_file, resize, max_size, batch_size,
           mixed_precision=True, annotations=None, verbose=True,
           fixed_size=None, device='cuda', rotated_bbox=False):
-    """Run inference on the images in ``path``. Returns a dict:
-    ``stats``, the COCO stats when ``annotations`` are given and there
-    are detections, else None; ``batch_ms``, the intervals between
-    consecutive batches (see ``BatchClock``)."""
+    """Run inference on the images in ``path``, in a process group on
+    this rank's shard with ``batch_size`` the global batch. Returns a
+    dict: ``stats``, the COCO stats when ``annotations`` are given and
+    there are detections (rank 0 only), else None; ``batch_ms``, the
+    intervals between consecutive batches (see ``BatchClock``)."""
     engine = hasattr(model, 'input_size')
     device = model.device if engine else torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -74,13 +81,16 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
         fixed_size = model.input_size
     if fixed_size is not None:
         max_size = max(fixed_size)
+    rank, world = parallel.world_info()
+    # the clean startup error of a batch that does not divide
+    parallel.host_local_batch_size(batch_size, world, 1)
 
     if verbose:
         print('Preparing dataset...')
     iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
     data_iterator = iterator_cls(
-        path, resize, max_size, batch_size, model.stride, 1, annotations,
-        training=False, fixed_size=fixed_size,
+        path, resize, max_size, batch_size, model.stride, world, annotations,
+        training=False, rank=rank, fixed_size=fixed_size,
         emit='f32' if engine else 'u8')
     if verbose:
         print(data_iterator)
@@ -139,14 +149,19 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
                       statistics.median(batch_ms[1:]), len(batch_ms) - 1,
                       'device' if device.type == 'cuda' else 'host'))
         print('Gathering results...')
-    results = [[s.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy(), i, r]
-               for s, b, c, i, r in results]
-    results = [np.concatenate(r, axis=0) for r in zip(*results)]
+    scores, boxes, classes, ids, ratios = zip(*results)
+    results = [torch.cat(scores), torch.cat(boxes), torch.cat(classes),
+               np.concatenate(ids), np.concatenate(ratios)]
+    gathered = [parallel.all_gather_host(r) for r in results]
+    if world > 1:
+        gathered = [g.reshape(-1, *g.shape[2:]) for g in gathered]
+    if rank != 0:
+        return {'stats': None, 'batch_ms': batch_ms}
 
     detections = []
     processed_ids = set()
     cat_ids = data_iterator.coco.get_cat_ids()
-    for scores, boxes, classes, image_id, ratio in zip(*results):
+    for scores, boxes, classes, image_id, ratio in zip(*gathered):
         image_id = int(image_id)
         if image_id in processed_ids:
             continue

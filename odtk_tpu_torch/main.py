@@ -12,13 +12,20 @@ as in the JAX CLI (``io/checkpoint.py``). ``export`` writes an engine
 engine extension loads one. ``train`` takes every flag of the JAX CLI:
 ``--backbone-weights`` (torchvision-format files for a fresh model's
 backbones), ``--logdir`` (TensorBoard scalars), ``--profile-dir`` (a
-``torch.profiler`` trace) and ``--post-metrics``. What is not ported
-yet (``--num-hosts`` > 1) raises and names the ROADMAP item, and
-``--feed yuv420`` is not ported; ``--with-dali`` and ``--with-apex`` are
-compatibility no-ops, as in the JAX CLI. So are ``--fused-stem /
---no-fused-stem`` and ``--wpack-layer1 / --no-wpack-layer1``: in the
-JAX CLI they pick between two TPU layouts of the same function, and here
-the ResNet stem always runs its CUDA kernel and layer1 as it is.
+``torch.profiler`` trace) and ``--post-metrics``. ``--feed yuv420`` is
+not ported; ``--with-dali`` and ``--with-apex`` are compatibility
+no-ops, as in the JAX CLI. So are ``--fused-stem / --no-fused-stem`` and
+``--wpack-layer1 / --no-wpack-layer1``: in the JAX CLI they pick between
+two TPU layouts of the same function, and here the ResNet stem always
+runs its CUDA kernel and layer1 as it is.
+
+``train`` and ``infer`` run data parallel (``parallel/``) with
+``--num-hosts`` n > 1 or with several cards: each host runs one process
+a card (one a host with ``--device cpu``), spawned as the original's
+``main.py:244-250`` spawns them, in one group served at ``--master``.
+``--host-id`` numbers the hosts, and ``--batch`` is the global batch.
+At world 1 nothing is spawned and no group is made; ``export`` always
+runs at world 1.
 """
 
 import argparse
@@ -63,13 +70,14 @@ def parse(args):
         description='ODTK-TPU (PyTorch + CUDA port): RetinaNet training '
                     'and inference.')
     parser.add_argument('--master', metavar='address:port', type=str,
-                        help='coordinator endpoint for multi-host runs '
-                             '(not ported: world 1 only)',
+                        help='endpoint of the process group (served by '
+                             'host 0) for data-parallel runs',
                         default='127.0.0.1:29500')
     parser.add_argument('--num-hosts', metavar='n', type=int, default=1,
-                        help='number of host processes (not ported: 1)')
+                        help='number of hosts, each running one process a '
+                             'card (one with --device cpu)')
     parser.add_argument('--host-id', metavar='i', type=int, default=0,
-                        help='this process index when multi-host')
+                        help='this host\'s index, 0 to n - 1')
     subparsers = parser.add_subparsers(help='sub-command', dest='command')
     subparsers.required = True
     devcount = max(1, torch.cuda.device_count())
@@ -276,10 +284,6 @@ def parse(args):
 
 
 def _refuse_unported(args):
-    if args.num_hosts > 1:
-        raise NotImplementedError(
-            '--num-hosts > 1: world > 1 is not ported yet (ROADMAP Queue 1 '
-            'item 7, data parallel)')
     if args.command != 'train':
         return
     if args.feed == 'yuv420':
@@ -434,12 +438,58 @@ def export(args, model):
                         calibration_entropy=args.calibration_entropy)
 
 
+def local_devices(device):
+    """The cards a host spreads a run over: all of them for a bare
+    ``cuda``, else the one device named."""
+    import torch
+
+    return max(1, torch.cuda.device_count()) if device == 'cuda' else 1
+
+
+def local_processes(args):
+    """Processes this host runs: one a card that takes part (``parallel.
+    processes_for_batch``), after the batch guards; 1 for ``export``."""
+    from . import parallel
+
+    if args.command == 'export':
+        return 1
+    devices = local_devices(args.device)
+    local_batch = parallel.host_local_batch_size(args.batch, args.num_hosts,
+                                                 devices)
+    return parallel.processes_for_batch(local_batch, devices, args.num_hosts)
+
+
+def worker(local_rank, args, local):
+    """One rank of a data-parallel run: joins the group, runs on its own
+    card (``cuda:<local_rank>``), leaves the group."""
+    import torch.distributed as dist
+
+    from . import parallel
+
+    parallel.init_distributed(args.master, args.num_hosts, args.host_id,
+                              args.device, local_rank, local)
+    if args.device == 'cuda':
+        args.device = f'cuda:{local_rank}'
+    try:
+        model, state = load_model(args)
+        return run(args, model, state)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(args=None):
     'Entry point for the odtk-tpu-torch command'
     args = parse(sys.argv[1:] if args is None else args)
     _refuse_unported(args)
-    model, state = load_model(args)
-    return run(args, model, state)
+    local = local_processes(args)
+    if args.command == 'export' or args.num_hosts * local == 1:
+        model, state = load_model(args)
+        return run(args, model, state)
+    if local == 1:
+        return worker(0, args, 1)
+    import torch.multiprocessing
+
+    torch.multiprocessing.spawn(worker, args=(args, local), nprocs=local)
 
 
 if __name__ == '__main__':

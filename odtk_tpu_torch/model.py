@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from . import backbones as backbones_mod
+from . import parallel
 from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
                   generate_anchors_rotated, nms, nms_rotated,
                   snap_to_anchors, snap_to_anchors_rotated_levels)
@@ -255,7 +256,11 @@ class Model:
         FPN) or five a backbone (several FPNs, strides repeated; the
         anchor tables are shared by stride). Both sums are divided by the
         foreground count, max(fg, 1) per level over the whole batch,
-        summed over the levels."""
+        summed over the levels. In a process group the whole batch is the
+        global one, as under the JAX package's mesh: each level's count is
+        summed over the processes before it is clamped, and each process
+        divides its own sums by that total, so the losses and gradients
+        summed over the processes are those of the global batch."""
         cls_heads, box_heads = self.heads(images)
         targets = targets.to(self.device, torch.float32)
         strides = [images.shape[2] // h.shape[2] for h in cls_heads]
@@ -273,8 +278,10 @@ class Model:
             cls_ts, box_ts, depths = (list(parts) for parts in zip(*levels))
         sums = detection_loss_sums_levels(cls_heads, box_heads, cls_ts,
                                           box_ts, depths, self.classes)
-        fg_total = torch.stack([torch.clamp((d > 0).sum(), min=1)
-                                for d in depths]).sum().float()
+        fg = torch.stack([(d > 0).sum() for d in depths])
+        if parallel.grouped():
+            parallel.all_reduce_sum([fg])
+        fg_total = torch.clamp(fg, min=1).sum().float()
         return sums[:, 0].sum() / fg_total, sums[:, 1].sum() / fg_total
 
     def decode_heads(self, cls_heads, box_heads, width):

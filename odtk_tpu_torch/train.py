@@ -1,7 +1,8 @@
-"""Training workflow on one device: the train step, the learning-rate
-schedule, the checkpoint and log cadence, periodic validation.
+"""Training workflow: the train step, the learning-rate schedule, the
+checkpoint and log cadence, periodic validation.
 
-Counterpart of ``odtk_tpu/train.py`` at world 1:
+Counterpart of ``odtk_tpu/train.py``, on one device or, in a process
+group (``parallel``), on one device a process:
 
 - SGD with momentum 0.9 (``torch.optim.SGD``, dampening 0, its fused
   form) and L2 weight decay folded into the gradient before the momentum,
@@ -19,7 +20,15 @@ Counterpart of ``odtk_tpu/train.py`` at world 1:
 - Losses are fetched every ``sync_every`` steps, with the divergence
   guard; the checkpoint, the log line, the TensorBoard scalars
   (``logdir``) and the metrics POST (``metrics_url``) come every ~60 s
-  and at the end, validation every ``val_iterations``. ``profile_dir``
+  and at the end, validation every ``val_iterations``.
+- In a group each process trains on its share of the global batch: the
+  loss is normalized over the global batch (``Model.loss_fn``), one
+  all-reduce a step sums the gradients and the two losses over the
+  processes, rank 0's weights are broadcast once at the start, and
+  every process skips, clips and logs the same global numbers. The
+  divergence guard raises at the same step on every rank; only rank 0
+  writes the checkpoint, the scalars, the metrics and the trace, and
+  every rank takes part in validation (``infer`` gathers). ``profile_dir``
   takes a ``torch.profiler`` trace of iterations start + 10 to start +
   20, as the JAX trainer takes a ``jax.profiler`` one.
 - The checkpoint's optimizer state has its path's format
@@ -40,6 +49,7 @@ import threading
 import numpy as np
 import torch
 
+from . import parallel
 from .data import DataIterator, RotatedDataIterator
 from .infer import BatchClock, infer
 from .io import checkpoint, opt_state
@@ -92,14 +102,24 @@ def make_train_step(model, optimizer, clip_grads=0.0, feed='u8'):
     """The train step: ``step(lr, images, targets)`` for the f32 feed,
     ``step(lr, images_u8, targets, colors, sizes)`` for the u8 feed.
     Returns (cls_loss, box_loss) as device scalars; the host does not
-    wait for the device."""
+    wait for the device. In a process group (made before this is
+    called) the gradients and the losses are summed over the processes
+    by one all-reduce after the backward, before the non-finite flag and
+    the clip read them: the global batch's gradient and losses, the same
+    on every rank."""
     params = [p for g in optimizer.param_groups for p in g['params']]
+    grouped = parallel.grouped()
 
     def update(lr, images, targets):
         optimizer.zero_grad(set_to_none=True)
         cls_loss, box_loss = model.loss_fn(images, targets)
         (cls_loss + box_loss).backward()
+        # every rank runs the same graph, so the same parameters have
+        # gradients and the flattened buffers line up
         grads = [p.grad for p in params if p.grad is not None]
+        losses = torch.stack([cls_loss.detach(), box_loss.detach()])
+        if grouped:
+            parallel.all_reduce_sum(grads + [losses])
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         optimizer.found_inf = (~torch.isfinite(norm)).float()
         if clip_grads and clip_grads > 0:
@@ -107,7 +127,7 @@ def make_train_step(model, optimizer, clip_grads=0.0, feed='u8'):
         for group in optimizer.param_groups:
             group['lr'] = lr
         optimizer.step()
-        return cls_loss.detach(), box_loss.detach()
+        return losses[0], losses[1]
 
     if feed == 'f32':
         return update
@@ -125,7 +145,8 @@ def _device_feed(data_iterator, device, prefetch=2):
     """One epoch of batches as tensors on ``device``. On CUDA a feeder
     thread pins each host batch and starts its copies on a side stream;
     the consumer's stream waits for that copy only. Loader errors
-    surface in the consumer."""
+    surface in the consumer. Closing the generator stops the feeder and
+    the loader's workers before it returns."""
     if device.type != 'cuda':
         for batch in data_iterator:
             yield [torch.from_numpy(a) for a in batch]
@@ -176,6 +197,9 @@ def _device_feed(data_iterator, device, prefetch=2):
             yield tensors
     finally:
         stop.set()
+        # the feeder closes the loader's epoch (and its workers) on its
+        # way out: nothing of this epoch runs after the caller goes on
+        thread.join()
 
 
 class _Trace:
@@ -211,8 +235,10 @@ def train(model, state, path, annotations, val_path, val_annotations,
           max_det=128, sync_every=8, clip_grads=0.0, feed='u8',
           device='cuda', rotated_bbox=False, absolute_angle=False,
           profile_dir=None):
-    """Train ``model`` for ``iterations`` steps on one device; writes
-    ``state['path']`` at the log cadence and at the end. Returns
+    """Train ``model`` for ``iterations`` steps on ``device``, in a
+    process group on this rank's share of each batch of ``batch_size``
+    (the global batch); rank 0 writes ``state['path']`` at the log
+    cadence and at the end. Returns
     ``{'model', 'losses', 'step_ms'}``: the (iteration, focal, box)
     losses of every step, and the ms between the ends of consecutive
     steps on the device's clock (host clock on the CPU; ``BatchClock``
@@ -226,7 +252,14 @@ def train(model, state, path, annotations, val_path, val_annotations,
         raise ValueError(f'unknown feed {feed!r} (the port reads u8 and f32; '
                          'yuv420 is not ported)')
 
+    rank, world = parallel.world_info()
+    # the clean startup error of a batch that does not divide
+    parallel.host_local_batch_size(batch_size, world, 1)
     model.to(device)
+    if parallel.grouped():
+        # a fresh init draws its seed in each process: start from rank 0's
+        parallel.broadcast_from_rank0([*model.module.parameters(),
+                                       *model.module.buffers()])
     model.set_dtype(torch.bfloat16 if mixed_precision else torch.float32)
     if not mixed_precision:
         torch.backends.cudnn.allow_tf32 = False
@@ -252,8 +285,8 @@ def train(model, state, path, annotations, val_path, val_annotations,
         print('Preparing dataset...')
     iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
     data_iterator = iterator_cls(
-        path, jitter, max_size, batch_size, model.stride, 1, annotations,
-        training=True, rotate_augment=rotate_augment,
+        path, jitter, max_size, batch_size, model.stride, world, annotations,
+        training=True, rank=rank, rotate_augment=rotate_augment,
         crop_augment=crop_augment, augment_brightness=augment_brightness,
         augment_contrast=augment_contrast, augment_hue=augment_hue,
         augment_saturation=augment_saturation, max_det=max_det,
@@ -266,11 +299,13 @@ def train(model, state, path, annotations, val_path, val_annotations,
         print('    device: {}'.format(name))
         print('     batch: {}, precision: {}'.format(
             batch_size, 'mixed (bf16)' if mixed_precision else 'full (fp32)'))
+        if world > 1:
+            print('     world: {} processes, rank {}'.format(world, rank))
         print(' BBOX type:', 'rotated' if rotated_bbox else 'axis aligned')
         print('Training model for {} iterations...'.format(iterations))
 
     writer = None
-    if logdir is not None:
+    if logdir is not None and rank == 0:
         from .io.events import SummaryWriter
         if verbose:
             print('Writing TensorBoard logs to: {}'.format(logdir))
@@ -288,14 +323,17 @@ def train(model, state, path, annotations, val_path, val_annotations,
             model.save(state)
 
     profiler = Profiler(['train', 'fw', 'bw'])
-    profile_start = iteration + 10 if profile_dir else None
+    profile_start = iteration + 10 if profile_dir and rank == 0 else None
     trace, trace_path = None, None
     cls_losses, box_losses, history = [], [], []
     pending = []
+    diverged = None
     clock = BatchClock(device)
 
     def drain_pending():
-        nonlocal applied
+        # records the first non-finite loss; it is raised at the next
+        # sync, a step that is the same on every rank
+        nonlocal applied, diverged
         for it_idx, shape, cl_dev, bl_dev, skipped in pending:
             cl, bl = float(cl_dev), float(bl_dev)
             if os.environ.get('ODTK_DEBUG'):
@@ -305,8 +343,8 @@ def train(model, state, path, annotations, val_path, val_annotations,
             cls_losses.append(cl)
             box_losses.append(bl)
             history.append((it_idx, cl, bl))
-            if not math.isfinite(cl + bl):
-                raise RuntimeError(
+            if diverged is None and not math.isfinite(cl + bl):
+                diverged = RuntimeError(
                     'Loss is diverging! (iteration {}: focal loss {}, box '
                     'loss {})\nTry lowering the learning rate.'.format(
                         it_idx, cl, bl))
@@ -332,9 +370,11 @@ def train(model, state, path, annotations, val_path, val_annotations,
             profiler.start('bw')
             pending.append((iteration, images.shape, cls_loss, box_loss,
                             optimizer.found_inf))
-            if len(pending) >= max(1, sync_every) \
+            if (iteration + 1) % max(1, sync_every) == 0 \
                     or iteration + 1 >= iterations:
                 drain_pending()
+                if diverged is not None:
+                    raise diverged
             profiler.stop('bw')
 
             iteration += 1
@@ -342,7 +382,8 @@ def train(model, state, path, annotations, val_path, val_annotations,
                 trace_path = trace.stop(iteration)
                 trace = None
             profiler.bump('train')
-            if profiler.totals['train'] > 60 or iteration == iterations:
+            if rank == 0 and (profiler.totals['train'] > 60
+                              or iteration == iterations):
                 drain_pending()
                 focal_loss = float(np.mean(cls_losses))
                 box_loss_m = float(np.mean(box_losses))

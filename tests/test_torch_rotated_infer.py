@@ -299,14 +299,14 @@ def test_cli_rotated_train_then_infer(tmp_path):
 
 
 def test_unported_flag_names_its_roadmap_item():
-    """A flag still not ported (--num-hosts > 1) raises and names its
-    item; the train flags of the JAX CLI, the rotated ones among them,
-    parse and do not."""
+    """--num-hosts > 1, once unported, now passes the parse and the
+    startup checks (data parallel, ROADMAP Queue 1 item 7, done); the
+    train flags of the JAX CLI, the rotated ones among them, parse and
+    do not raise either."""
     args = cli.parse(['--num-hosts', '2', 'train', 'm.pth',
                       '--annotations', 'a.json'])
-    with pytest.raises(NotImplementedError,
-                       match=r'--num-hosts > 1: .*\(ROADMAP Queue 1 item 7'):
-        cli._refuse_unported(args)
+    cli._refuse_unported(args)
+    assert args.num_hosts == 2 and cli.local_processes(args) >= 1
     args = cli.parse(['train', 'm.ckpt', '--annotations', 'a.json',
                       '--rotated-bbox', '--absolute-angle',
                       '--anchor-angles', '-0.5', '0', '0.5',
