@@ -16,7 +16,10 @@ ResNet34C4) and models of several backbones: inference
 (``odtk-tpu-torch infer``) and training (``odtk-tpu-torch train``, with
 every flag of the JAX CLI), both data parallel at world > 1
 (``parallel/``: one process a card over NCCL, gloo on the CPU), and
-export (``odtk-tpu-torch export``). Checkpoints are ``.pth`` or
+export (``odtk-tpu-torch export``: ``.engine`` packages, a ``.pt2``
+program, and ``.cppengine`` AOTInductor packages that the C++ samples
+of ``extras/cppapi`` run with the same kernels); ``extras/`` also holds
+video inference, the anchor tables and the CLI harness. Checkpoints are ``.pth`` or
 ``.ckpt`` (flax msgpack, read and written without flax), and the
 momentum carries over both ways through a ``.ckpt`` or the JAX
 package's optax bytes; a ``.pth`` written here holds a ``torch.optim``

@@ -22,11 +22,19 @@ top-down sums round once, and casting the ops by hand instead changed the
 heads by a bf16 ulp (NVIDIA H100, torch 2.11). Its convolution weights
 are stored in bf16, the dtype autocast casts them to.
 
-The weights are an input of each program, not part of it, so the
-programs of all batch profiles share one copy in the file (as the JAX
-package's engine keeps its variables beside its executables). An engine
-runs on the device type it was exported on; ``Engine.load`` refuses
-another. File layout: ``ENGINE_HEADER``, then little-endian u64 lengths
+Two more targets hold their weights inside one file: ``.pt2``
+(``export_model``), the ``torch.export.save`` program of the largest
+batch profile on the ``.engine``'s input, in place of the JAX package's
+``.stablehlo`` (XLA's format, which has no writer here: that path is
+refused); and ``.cppengine`` (``export_cpp_engine``), an AOTInductor
+package compiled for the device, which the C++ samples in
+``extras/cppapi`` load without Python.
+
+In a ``.engine`` the weights are an input of each program, not part of
+it, so the programs of all batch profiles share one copy in the file (as
+the JAX package's engine keeps its variables beside its executables). An
+engine runs on the device type it was exported on; ``Engine.load``
+refuses another. File layout: ``ENGINE_HEADER``, then little-endian u64 lengths
 each followed by its bytes: the JSON metadata, the weights
 (``torch.save`` of a state_dict), the calibration table (JSON, or empty),
 then one ``torch.export.save`` program per batch profile, in the order of
@@ -37,7 +45,10 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -51,7 +62,6 @@ from .ops.kernels import stem as _stem  # noqa: F401
 
 ENGINE_MAGIC = 'odtk-tpu-torch-engine-v1'
 ENGINE_HEADER = b'ODTK-TORCH-ENGINE\n'
-_NOT_PORTED_TARGETS = ('.stablehlo', '.cppengine')
 
 
 def _dtype_of(precision):
@@ -111,6 +121,53 @@ def engine_net(model, dtype, quantized=None):
     return EngineNet(model, net, dtype), variables
 
 
+# the u8 contract's normalization, (x / 255 - mean) / std, as a
+# subtraction and a multiplication
+U8_SHIFT = np.float32(255.0) * IMAGENET_MEAN
+U8_SCALE = np.float32(1.0) / (np.float32(255.0) * IMAGENET_STD)
+
+
+def normalize_u8(images):
+    """Raw RGB u8 [B, H, W, 3] -> normalized f32, the JAX package's C++
+    engine's ``(x / 255 - mean) / std`` with no pad mask
+    (``odtk_tpu/export.py:export_cpp_engine``), computed as ``(x - 255
+    mean) * (1 / (255 std))``: a compiled graph turns a division by a
+    constant into a multiplication by its reciprocal and may fuse a
+    multiply and an add, so this is the form that it and eager round
+    alike."""
+    shift = torch.from_numpy(U8_SHIFT).to(images.device)
+    scale = torch.from_numpy(U8_SCALE).to(images.device)
+    return (images.float() - shift) * scale
+
+
+class PackagedNet(nn.Module):
+    """An ``EngineNet`` whose weights are its own module state, so that one
+    file holds the program and its weights (``.pt2``, ``.cppengine``):
+    images [B, H, W, 3] -> the engine's (scores, boxes, classes).
+    ``input_format`` 'u8' takes raw RGB bytes and normalizes them in the
+    graph (``normalize_u8``); ``flat_boxes`` returns boxes as
+    [B, D * box_dim], the JAX C++ engine's rank-2 layout."""
+
+    def __init__(self, engine, input_format='f32', flat_boxes=False):
+        super().__init__()
+        if input_format not in ('f32', 'u8'):
+            raise ValueError(f'unknown input format {input_format!r} '
+                             '(f32 or u8)')
+        self.engine = engine
+        self.net = engine.net
+        self.u8 = input_format == 'u8'
+        self.flat_boxes = flat_boxes
+
+    def forward(self, images):
+        if self.u8:
+            images = normalize_u8(images)
+        # no variables given: ``functional_call`` runs on the net's own
+        scores, boxes, classes = self.engine({}, images)
+        if self.flat_boxes:
+            boxes = boxes.reshape(boxes.shape[0], -1)
+        return scores, boxes, classes
+
+
 def _round_size(model, size):
     if isinstance(size, int):
         size = (size, size)
@@ -134,10 +191,11 @@ def export_model(model, size, batch=1, precision='bf16', path=None,
     the stride. dynamic_batch_opts: (min, opt, max) batch profiles, one
     program each. INT8 calibrates (or reads ``calibration_table``) and
     stores the calibrated convolutions as int8."""
-    if path and path.endswith(_NOT_PORTED_TARGETS):
-        raise NotImplementedError(
-            f'{os.path.splitext(path)[1]} export is not ported yet (ROADMAP '
-            'Queue 1 item 8, CLI and extras); write a .engine or .plan')
+    if path and path.endswith('.stablehlo'):
+        raise ValueError(
+            '.stablehlo is XLA\'s interchange format and has no writer on '
+            'this package\'s devices: write a .pt2 (the torch.export '
+            'program of the largest batch profile) instead')
     size = _round_size(model, size)
     dtype = _dtype_of(precision)
     model.set_dtype(dtype)
@@ -160,6 +218,17 @@ def export_model(model, size, batch=1, precision='bf16', path=None,
 
     net, variables = engine_net(model, dtype, quantized)
     batches = sorted(set(dynamic_batch_opts or [batch]))
+    if path and path.endswith('.pt2'):
+        images = torch.zeros(batches[-1], size[0], size[1], 3,
+                             device=model.device)
+        with torch.no_grad():
+            program = torch.export.export(PackagedNet(net), (images,))
+        program.example_inputs = None
+        torch.export.save(program, path)
+        if verbose:
+            print(f'Wrote {path} (batch {batches[-1]}, {size[0]}x{size[1]}, '
+                  f'{os.path.getsize(path) / 1e6:.1f} MB)')
+        return path
     meta = {
         'magic': ENGINE_MAGIC,
         'input_size': list(size),
@@ -196,6 +265,112 @@ def export_model(model, size, batch=1, precision='bf16', path=None,
     if path:
         engine.save(path)
     return engine
+
+
+def _openmp_compiler():
+    """The C++ compiler for AOTInductor: the one it would take (``$CXX``,
+    else ``g++``) if that one links OpenMP, which the package's wrapper
+    is built with (``-fopenmp``), else the first of ``g++`` and ``c++``
+    on the PATH that does; None (AOTInductor's own choice) where none
+    does. A GCC links OpenMP where it finds ``libgomp.spec``: a toolchain
+    trimmed of it fails at the link."""
+    from torch._inductor import config
+
+    for cxx in [c for c in config.cpp.cxx if c] + ['g++', 'c++']:
+        path = shutil.which(cxx)
+        if path is None:
+            continue
+        spec = subprocess.run([path, '-print-file-name=libgomp.spec'],
+                              capture_output=True, text=True, timeout=60)
+        if os.path.isabs(spec.stdout.strip()):
+            return path
+    return None
+
+
+def export_cpp_engine(model, size, batch=1, path='model.cppengine',
+                      precision='bf16', input_format='f32', verbose=False):
+    """Write a self-contained C++ engine (``odtk_tpu_torch/extras/cppapi``),
+    the counterpart of ``odtk_tpu/export.py:export_cpp_engine``: an
+    AOTInductor package (``torch._inductor.aoti_compile_and_package``)
+    compiled for the model's device, with the weights baked in as
+    constants, one fixed ``batch`` and the JAX engine's contract: input
+    [batch, H, W, 3] f32 normalized NHWC, or raw RGB uint8 with
+    ``input_format='u8'`` (normalized in the graph); outputs (scores
+    [B, D], boxes [B, D * box_dim], classes [B, D]). The hand-written
+    kernels stay ``odtk::`` operators that the compiled code calls: from
+    Python the ones ``ops/kernels/`` registers, from C++ the ones
+    ``extras/cppapi/odtk_ops.cpp`` registers. The package's metadata
+    (``get_metadata()``, strings) holds the JAX container's keys
+    (height, width, batch, detections, box_dim, stride, classes,
+    backbones, precision, input) and ``device``. Precision: fp32 or bf16
+    (under the ``.engine``'s autocast region); INT8 is refused, as no
+    quantized C++ engine exists."""
+    if precision in ('int8', 'INT8'):
+        raise ValueError(
+            'INT8 .cppengine: the C++ engine is fp32 or bf16 (a w8a16 '
+            'program is the .engine\'s); export without --int8, or write '
+            'an INT8 .engine')
+    size = _round_size(model, size)
+    dtype = _dtype_of(precision)
+    model.set_dtype(dtype)
+    net, _ = engine_net(model, dtype)
+    packaged = PackagedNet(net, input_format, flat_boxes=True)
+    images = torch.zeros(
+        batch, size[0], size[1], 3, device=model.device,
+        dtype=torch.uint8 if input_format == 'u8' else torch.float32)
+    meta = {
+        'height': size[0], 'width': size[1], 'batch': batch,
+        'detections': model.detections,
+        'box_dim': 6 if model.rotated_bbox else 4,
+        'stride': model.stride, 'classes': model.classes,
+        'backbones': '+'.join(model.backbones), 'precision': precision,
+        'input': input_format, 'device': model.device.type,
+    }
+    if verbose:
+        print(f'Compiling (device={model.device}, batch={batch}, '
+              f'size={size})...')
+    with torch.no_grad():
+        program = torch.export.export(packaged, (images,))
+    from torch._inductor import aoti_compile_and_package
+
+    configs = {'aot_inductor.metadata': {k: str(v) for k, v in meta.items()}}
+    # the .engine's numbers: bf16 rounded after each fused operation as
+    # eager rounds it, and float32 division rounded as eager's (Triton's
+    # own is approximate)
+    from torch._inductor import config as inductor_config
+    if hasattr(inductor_config, 'emulate_precision_casts'):
+        configs['emulate_precision_casts'] = True
+    if hasattr(getattr(inductor_config, 'eager_numerics', None),
+               'division_rounding'):
+        configs['eager_numerics.division_rounding'] = True
+    cxx = _openmp_compiler()
+    if cxx:
+        configs['cpp.cxx'] = (cxx,)
+    # the packager takes only a .pt2 name, and names the archive's root
+    # folder after it
+    work = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(path)))
+    try:
+        tmp = os.path.join(work, os.path.splitext(
+            os.path.basename(path))[0] + '.pt2')
+        aoti_compile_and_package(program, package_path=tmp,
+                                 inductor_configs=configs)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if verbose:
+        print(f'Wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB)')
+    return path
+
+
+def load_cpp_engine(path):
+    """A ``.cppengine`` loaded into this process
+    (``torch._inductor.aoti_load_package``): call it on one input batch of
+    its contract; ``get_metadata()`` gives its metadata. Its ``odtk::``
+    operators are this package's Python registration."""
+    from torch._inductor import aoti_load_package
+
+    with open(path, 'rb') as f:       # a file: the loader takes any name
+        return aoti_load_package(f)
 
 
 def calibrate(model, size, calibration_files, calibration_table=None,

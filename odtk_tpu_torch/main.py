@@ -8,11 +8,14 @@ checkpoint with ``angles``, or a rotated engine, implies it), plus
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
 CPU. Checkpoints are ``.pth`` / ``.torch`` or ``.ckpt`` (flax msgpack),
 as in the JAX CLI (``io/checkpoint.py``). ``export`` writes an engine
-(``export.py``) for the device it runs on; ``infer`` on a path with an
-engine extension loads one. ``train`` takes every flag of the JAX CLI:
-``--backbone-weights`` (torchvision-format files for a fresh model's
-backbones), ``--logdir`` (TensorBoard scalars), ``--profile-dir`` (a
-``torch.profiler`` trace) and ``--post-metrics``. ``--feed yuv420`` is
+(``export.py``) for the device it runs on: a ``.engine`` / ``.plan``
+package, a ``.pt2`` program (the JAX CLI's ``.stablehlo``), or a
+``.cppengine`` for the C++ samples (``extras/cppapi``); ``infer`` on a
+path with an engine extension (``.engine`` / ``.plan``) loads one.
+``train`` takes every flag of the JAX CLI: ``--backbone-weights``
+(torchvision-format files for a fresh model's backbones), ``--logdir``
+(TensorBoard scalars), ``--profile-dir`` (a ``torch.profiler`` trace)
+and ``--post-metrics``. ``--feed yuv420`` is
 not ported; ``--with-dali`` and ``--with-apex`` are compatibility
 no-ops, as in the JAX CLI. So are ``--fused-stem / --no-fused-stem`` and
 ``--wpack-layer1 / --no-wpack-layer1``: in the JAX CLI they pick between
@@ -235,7 +238,9 @@ def parse(args):
                                'inference engine')
     pe.add_argument('model', type=str, help='checkpoint to export')
     pe.add_argument('export', type=str,
-                    help='path of the engine to write (.engine, .plan)')
+                    help='path of the engine to write (.engine or .plan '
+                         'package, .pt2 program, or .cppengine for the C++ '
+                         'samples)')
     pe.add_argument('--size', metavar='height width', type=int, nargs='+',
                     default=[1280], help='fixed engine input: one value for '
                                          'square, or height width')
@@ -243,7 +248,9 @@ def parse(args):
                     help='keep fp32 compute instead of bf16')
     pe.add_argument('--input-format', choices=['f32', 'u8'], default='f32',
                     dest='input_format',
-                    help='.cppengine input contract (not ported yet)')
+                    help='.cppengine input contract: u8 takes raw '
+                         'letterboxed RGB bytes and normalizes in-graph (4x '
+                         'fewer host->device bytes per frame)')
     pe.add_argument('--int8', action='store_true',
                     help='run INT8 calibration and emit an int8 engine')
     pe.add_argument('--calibration-batches', metavar='size', type=int,
@@ -405,7 +412,9 @@ def _find_calibration_images(directory, want, minimum):
 def export(args, model):
     """The ``export`` command (``odtk_tpu/main.py:435-471``): the
     post-processing overrides baked in, calibration images sampled for
-    INT8, the engine exported on ``--device``."""
+    INT8, the engine exported on ``--device``; a ``.cppengine`` at the
+    batch of ``--dynamic-batch-opts``' middle value, in the contract of
+    ``--input-format``."""
     import torch
 
     device = torch.device(args.device)
@@ -431,6 +440,14 @@ def export(args, model):
     precision = 'FP32' if args.full_precision else 'FP16'
     if args.int8:
         precision = 'INT8'
+    if args.export.endswith('.cppengine'):
+        # self-contained C++ deployment engine (extras/cppapi)
+        from .export import export_cpp_engine
+        return export_cpp_engine(model, tuple(input_size),
+                                 batch=args.dynamic_batch_opts[1],
+                                 path=args.export, precision=precision,
+                                 input_format=args.input_format,
+                                 verbose=args.verbose)
     return model.export(input_size, args.dynamic_batch_opts, precision,
                         calibration_files, args.calibration_table,
                         args.verbose, path=args.export,

@@ -28,7 +28,8 @@ from odtk_tpu.export import Engine as JaxEngine
 from odtk_tpu.export import export_model as jax_export_model
 from odtk_tpu.model import Model as JaxModel
 from odtk_tpu_torch import main as cli
-from odtk_tpu_torch.export import ENGINE_HEADER, Engine, export_model
+from odtk_tpu_torch.export import (ENGINE_HEADER, Engine, export_model,
+                                   load_cpp_engine)
 from odtk_tpu_torch.io.jax_bridge import state_dict_from_jax
 from odtk_tpu_torch.model import Model
 from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
@@ -232,9 +233,23 @@ def test_export_postprocessing_overrides(tmp_path):
 
 @pytest.mark.parametrize('ext', ['.stablehlo', '.cppengine'])
 def test_unported_targets_name_their_roadmap_item(variables, tmp_path, ext):
+    """The two targets that ROADMAP Queue 1 item 8 ported: ``.stablehlo``
+    (XLA's format) is refused in favour of ``.pt2``, and the CLI writes a
+    ``.cppengine`` at the batch of ``--dynamic-batch-opts``' middle value
+    whose metadata states its contract."""
     path = str(tmp_path / f'm{ext}')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-        export_model(port_model(variables), (128, 128), path=path)
+    if ext == '.stablehlo':
+        with pytest.raises(ValueError, match=r'write a \.pt2'):
+            export_model(port_model(variables), (128, 128), path=path)
+        return
+    ckpt = str(tmp_path / 'm.pth')
+    port_model(variables).save({'path': ckpt})
+    cli.main(['export', ckpt, path, '--size', '128', '--input-format', 'u8',
+              '--dynamic-batch-opts', '1', '3', '4', '--device', 'cpu'])
+    meta = load_cpp_engine(path).get_metadata()
+    assert (meta['batch'], meta['input'], meta['precision'],
+            meta['height'], meta['box_dim']) == ('3', 'u8', 'FP16', '128',
+                                                 '4')
 
 
 def test_rotated_engine_roundtrip(tmp_path):

@@ -1022,3 +1022,45 @@ def test_engine_on_the_card_runs_the_kernels(cuda_device, rotated):
     want = model.inference_fn(x.to(cuda_device))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cpp_runtime_runs_the_kernels(cuda_device, tmp_path):
+    """``odtk_ops.cpp`` built with the kernel library, and ``odtk_infer``
+    on a small bf16 ``.cppengine`` (ResNet18FPN, 3 classes, 256 px, u8
+    contract) in a process without Python: its detections equal the
+    Python-loaded package's on the same bytes, bit for bit, and its
+    counters show one NMS and one stem launch an inference."""
+    import subprocess
+
+    from odtk_tpu_torch.export import export_cpp_engine, load_cpp_engine
+    from odtk_tpu_torch.extras.cppapi import build as cppapi_build
+    from odtk_tpu_torch.model import Model
+
+    binaries = cppapi_build.build()
+    model = Model('ResNet18FPN', classes=3,
+                  config={'threshold': 0.001}).initialize(0).to(cuda_device)
+    path = str(tmp_path / 'm.cppengine')
+    export_cpp_engine(model, (256, 256), batch=2, path=path,
+                      precision='bf16', input_format='u8')
+    pixels = np.random.RandomState(0).randint(0, 256, (256, 256, 3)).astype(
+        np.uint8)
+    (tmp_path / 'im.ppm').write_bytes(b'P6\n256 256\n255\n'
+                                      + pixels.tobytes())
+    run = subprocess.run(
+        [binaries['odtk_infer'], path, str(tmp_path / 'im.ppm'),
+         str(tmp_path / 'out.ppm'), str(tmp_path / 'det.txt')],
+        capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+    assert ('launches after 101 inferences: nms=101 nms_rotated=0 '
+            'bn_relu_pool=101') in run.stdout
+    rows = np.loadtxt(tmp_path / 'det.txt', ndmin=2).astype(np.float32)
+    batch = np.zeros((2, 256, 256, 3), np.uint8)
+    batch[0] = pixels
+    want = [o.cpu().numpy() for o in load_cpp_engine(path)(
+        torch.from_numpy(batch).to(cuda_device))]
+    got = (rows[:, 2].reshape(2, -1), rows[:, 4:].reshape(2, -1),
+           rows[:, 3].reshape(2, -1))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert (want[0] > 0).sum() > 0
