@@ -170,6 +170,23 @@ it, and prints each phase's wall seconds:
      (bf16, b = 2) and by phase 11's engine, each batch equal to the
      direct call, NMS and the stem once a batch, frames per second; with
      OpenCV, ``infer_video.main`` on two mp4s.
+ 31. w8a8 (``w8a8_phase``): ``build_quant_variables(mode='w8a8')`` on
+     phase 4's checkpoint with phase 11's persisted absmax table, bf16:
+     on the first b=2 batch at 896 x 1408 every one of the 111 conv calls
+     (the ``odtk::conv_w8a8`` kernel's outputs in the forward, captured by
+     hooks) bit-equal to the plain version on its input, and again with
+     NaN, +inf and -inf planted; ``inference_fn`` on four batches (the
+     kernel 111 times a batch, the stem and NMS once), detections
+     non-empty and finite; a bf16 engine exported from the w8a8 model on
+     the same batches (the same launches, phase 11's rule against the
+     model); the entropy table on one batch; phase 20's MobileNetV2FPN
+     with its absmax table on one batch (109 calls, 17 depthwise,
+     bit-equal, no stem); reports: the w8a8 engine's top-10 score gap to
+     phase 11's bf16 engine beside phase 11's w8a16 gap, ms a batch of
+     the w8a8 model and engine beside phase 11's bf16 and w8a16 engines,
+     and the kernel's device time over one forward's 111 calls beside its
+     bound, the plain version and bf16 cuDNN ``F.conv2d`` on the same
+     shapes (the yardstick ``library_ms``).
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -2016,7 +2033,8 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False,
     them; each int8 engine near the bf16 one on every batch
     (``int8_check``); each int8 package under the fp32 one / 2.5 where
     both are exported. Returns ({engine: ms per batch}, the stem kernel's
-    launches over the engines' infer runs)."""
+    launches over the engines' infer runs, {int8 engine: its
+    ``int8_check`` numbers' maxima})."""
     from odtk_tpu_torch import main as cli
     from odtk_tpu_torch.data import DataIterator, RotatedDataIterator
     from odtk_tpu_torch.export import Engine
@@ -2122,7 +2140,7 @@ def export_phase(root, ckpt, img_dir, ann, device, rotated=False,
           f'int8 engines vs bf16 (top-{INT8_TOP_K} scores max err, the '
           f'int8 top-1 class\'s gap to the bf16 top score) {int8_err}; '
           f'package bytes {sizes}', flush=True)
-    return ms, stem_launches
+    return ms, stem_launches, int8_err
 
 
 def top1_rule(label, got, want, what='engine', ref='checkpoint path',
@@ -2226,17 +2244,23 @@ INT8_TOP_K = 10
 INT8_SCORE_TOL = 2.5e-3
 
 
-def int8_check(label, got, ref):
+def int8_gaps(got, ref):
     """Int8 detections ``got`` against the bf16 engine's ``ref`` on one
     batch: (the largest top-k score error, the largest gap between the
     bf16 top score and the bf16 engine's best score for the int8 top-1
-    class); raises where either passes INT8_SCORE_TOL."""
+    class)."""
     err = (got[0][:, :INT8_TOP_K] - ref[0][:, :INT8_TOP_K]).abs().max().item()
     gap = 0.0
     for i in range(ref[0].shape[0]):
         same = ref[0][i][ref[2][i] == got[2][i, 0]]
         gap = max(gap, (ref[0][i, 0] - same.max()).item() if same.numel()
                   else math.inf)
+    return err, gap
+
+
+def int8_check(label, got, ref):
+    """``int8_gaps``; raises where either passes INT8_SCORE_TOL."""
+    err, gap = int8_gaps(got, ref)
     if not max(err, gap) <= INT8_SCORE_TOL:
         raise AssertionError(f'{label}: top-{INT8_TOP_K} scores off the bf16 '
                              f'engine\'s by {err!r}, top-1 class {gap!r} '
@@ -2573,6 +2597,316 @@ def video_phase(ckpt, engine_path, img_dir, root, device, smi):
     return launches
 
 
+# ------------------------------------------------------------ w8a8 (31)
+
+INT8_OPS_PER_MS = 1979e12 / 1e3     # H100 SXM int8 tensor cores, dense
+W8A8_BATCHES = 4
+W8A8_CALLS = {'ResNet50FPN': 111, 'MobileNetV2FPN': 109}
+W8A8_PLAIN_RUNS = 3
+
+
+def _w8a8_model(ckpt, table_path, device):
+    """Phase 4's (or 20's) checkpoint at bf16 with its convolutions swapped
+    to w8a8 by the persisted calibration table."""
+    from odtk_tpu_torch.model import Model
+    from odtk_tpu_torch.quantize import build_quant_variables
+
+    with open(table_path) as f:
+        table = json.load(f)['act_absmax']
+    model, _ = Model.load(ckpt, device=device)
+    model.set_dtype(torch.bfloat16)
+    model.threshold = ENGINE_THRESHOLD
+    _, stats = build_quant_variables(model.module, table, mode='w8a8')
+    return model, stats
+
+
+def _capture_convs(model, fn):
+    """Runs ``fn`` with a forward hook on every w8a8 convolution: [(conv,
+    its input, its output)] of each call, in order, cloned."""
+    from odtk_tpu_torch.backbones.layers import QuantConv2d
+
+    calls = []
+
+    def hook(module, args, out):
+        calls.append((module, args[0].clone(), out.clone()))
+
+    handles = [m.register_forward_hook(hook) for m in model.module.modules()
+               if isinstance(m, QuantConv2d)]
+    try:
+        result = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls, result
+
+
+def _conv_args(conv, x, out_dtype):
+    return (x, conv.weight, conv.w_scale, conv.act_scale, conv.bias,
+            conv.stride, conv.padding, conv.groups, out_dtype)
+
+
+def _hold_convs(label, calls):
+    """Every captured call's output (the kernel's, in the main path) equal
+    bit for bit to the plain version on the same input; returns the
+    count and the largest error (0.0)."""
+    from odtk_tpu_torch.ops.kernels import conv_w8a8
+
+    grouped = 0
+    for i, (conv, x, y) in enumerate(calls):
+        want = conv_w8a8.conv_w8a8_plain(*_conv_args(conv, x, y.dtype))
+        if not torch.equal(y, want):
+            raise AssertionError(
+                f'{label}: conv call {i} ({list(x.shape)} {x.dtype} -> '
+                f'{list(y.shape)}, groups {conv.groups}) kernel != plain: '
+                f'max abs diff {_max_abs([y], [want])}, '
+                f'{int((y != want).sum())} elements')
+        grouped += conv.groups > 1
+    return grouped
+
+
+def _conv_bound(conv, x, y):
+    """(ms by bytes, ms by int8 operations) of one call: x read, the int8
+    weight, scales and bias read, y written; 2 M N K operations."""
+    o, kh, kw, _ = conv.weight.shape
+    cin_g = x.shape[1] // conv.groups
+    nbytes = (x.numel() * x.element_size() + o * kh * kw * cin_g + 8 * o
+              + y.numel() * y.element_size())
+    ops = 2.0 * y.numel() * kh * kw * cin_g
+    return nbytes / HBM_BYTES_PER_MS, ops / INT8_OPS_PER_MS
+
+
+def _profiled_ms(fn, keep, runs=5):
+    """Device ms per run of ``fn`` summed over the CUDA kernels whose name
+    ``keep`` accepts, from a torch.profiler trace of ``runs`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from odtk_tpu_torch.profile_infer import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in device_events(prof)
+             if keep(e.name))
+    if not us:
+        raise AssertionError('the profiler saw no device time')
+    return us / 1e3 / runs
+
+
+def _conv_times(calls):
+    """The w8a8 convolution over one forward's calls: the kernels' device
+    ms (profiler), the same calls' event ms (host enqueue included), the
+    plain version's ms, bf16 cuDNN ``F.conv2d`` on the same shapes
+    (dequantized weights: the yardstick the port never calls) and the
+    summed bound."""
+    import torch.nn.functional as F
+
+    from odtk_tpu_torch.ops.kernels import conv_w8a8
+
+    args = [_conv_args(conv, x, y.dtype) for conv, x, y in calls]
+
+    def kernels():
+        for a in args:
+            conv_w8a8.conv_w8a8(*a)
+
+    def plain():
+        for a in args:
+            conv_w8a8.conv_w8a8_plain(*a)
+
+    lib = []
+    for conv, x, _ in calls:
+        cin_g = x.shape[1] // conv.groups
+        w = (conv_w8a8.unpack_weight(conv.weight, cin_g).float()
+             * conv.w_scale[:, None, None, None]).to(torch.bfloat16)
+        b = None if conv.bias is None else conv.bias.to(torch.bfloat16)
+        lib.append((x.to(torch.bfloat16), w.contiguous(), b, conv.stride,
+                    conv.padding, 1, conv.groups))
+
+    def library():
+        for a in lib:
+            F.conv2d(*a)
+
+    ours = ('quantize_nhwc_kernel', 'conv_igemm_kernel',
+            'conv_direct_kernel')
+    ms = _profiled_ms(kernels, lambda n: any(k in n for k in ours))
+    event_ms = _median_ms(kernels, runs=5, warmup=1)
+    plain_ms = _median_ms(plain, runs=W8A8_PLAIN_RUNS, warmup=1)
+    library_ms = _profiled_ms(library, lambda n: True)
+    t_bytes = t_ops = bound = 0.0
+    for conv, x, y in calls:
+        b_ms, o_ms = _conv_bound(conv, x, y)
+        bound += max(b_ms, o_ms)
+        t_bytes += b_ms if b_ms >= o_ms else 0.0
+        t_ops += o_ms if o_ms > b_ms else 0.0
+    return dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound=(bound, 'bytes' if t_bytes >= t_ops else 'operations'),
+                bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+
+
+def _counted(fn):
+    """Runs ``fn`` with the w8a8, stem and NMS counters set to 0 just
+    before; (its result, {kernel: launches})."""
+    from odtk_tpu_torch.ops.kernels import conv_w8a8, nms, stem
+
+    counters = {'conv_w8a8': conv_w8a8.conv_w8a8, 'stem': stem.bn_relu_pool,
+                'nms': nms.nms}
+    for k in counters.values():
+        k.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {n: k.launches for n, k in counters.items()}
+
+
+def _expect(label, launches, batches, calls, stems):
+    want = {'conv_w8a8': calls * batches, 'stem': stems * batches,
+            'nms': batches}
+    if launches != want:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{want} over {batches} batches')
+
+
+def _finite_detections(label, outs):
+    for scores, boxes, _ in outs:
+        if not (scores > 0).any(dim=1).all():
+            raise AssertionError(f'{label}: an image with no detection')
+        if not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()):
+            raise AssertionError(f'{label}: non-finite detections')
+
+
+def _batch_ms(fn, batches):
+    """Median wall ms a batch of ``fn`` (synchronized), after one warmup."""
+    fn(batches[0])
+    torch.cuda.synchronize()
+    times = []
+    for x in batches:
+        start = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
+               engine_ms, int8_err):
+    """Phase 31: ``build_quant_variables(mode='w8a8')`` on phase 4's
+    ResNet50FPN with phase 11's absmax table at bf16, and the model, its
+    engine, the entropy table and phase 20's MobileNetV2FPN through the
+    ``odtk::conv_w8a8`` kernel, each conv call held to plain bit for bit.
+    Returns the kernel row and the stem and NMS launches of its runs."""
+    from odtk_tpu_torch.data import DataIterator
+    from odtk_tpu_torch.export import Engine, export_model
+    from odtk_tpu_torch.ops.kernels import conv_w8a8
+
+    table = {name: os.path.join(root, f'axis_export_int8_{name}.calib.json')
+             for name in ('absmax', 'entropy')}
+    model, stats = _w8a8_model(ckpt, table['absmax'], device)
+    iterator = DataIterator(img_dir, 800, 1408, 2, model.stride, 1, ann,
+                            training=False, fixed_size=(896, 1408),
+                            emit='f32')
+    batches = []
+    for data, _, _ in iterator:
+        batches.append(torch.from_numpy(data).to(device))
+        if len(batches) == W8A8_BATCHES:
+            break
+    nb = len(batches)
+
+    # the model: four batches, every conv call of the first captured
+    def run_model():
+        calls, first = _capture_convs(
+            model, lambda: model.inference_fn(batches[0]))
+        return calls, [first] + [model.inference_fn(x) for x in batches[1:]]
+
+    (calls, direct), launches = _counted(run_model)
+    total = dict(launches)
+    _expect('w8a8 model', launches, nb, W8A8_CALLS['ResNet50FPN'], 1)
+    _finite_detections('w8a8 model', direct)
+    _hold_convs('w8a8 ResNet50FPN', calls)
+    dtypes = sorted({str(y.dtype)[6:] for _, _, y in calls})
+    conv, x, y = calls[len(calls) // 4]
+    x = x.clone()
+    x[0, 0, 0, 0], x[0, 1, 1, 1] = float('nan'), float('inf')
+    x[-1, -1, -1, -1] = -float('inf')
+    args = _conv_args(conv, x, y.dtype)
+    if not torch.equal(conv_w8a8.conv_w8a8(*args),
+                       conv_w8a8.conv_w8a8_plain(*args)):
+        raise AssertionError('w8a8: kernel != plain with NaN and +-inf '
+                             f'planted in a {list(x.shape)} input')
+    print(f'w8a8 model: {stats["quantized_tensors"]} convs swapped, '
+          f'{len(calls)} conv calls a forward bit-equal to plain at '
+          f'{list(batches[0].shape)} (outputs {dtypes}), and with NaN / '
+          f'+-inf planted; launches over {nb} batches {launches}',
+          flush=True)
+
+    # the engine of the w8a8 model against the model
+    start = time.perf_counter()
+    engine = export_model(model, (896, 1408), precision='bf16',
+                          dynamic_batch_opts=[2, 2, 2])
+    export_s = time.perf_counter() - start
+    w8a8_engine_outs, launches = _counted(
+        lambda: [engine(x) for x in batches])
+    _expect('w8a8 engine', launches, nb, W8A8_CALLS['ResNet50FPN'], 1)
+    total = {k: total[k] + launches[k] for k in total}
+    score_err, tied = 0.0, 0
+    for got, want in zip(w8a8_engine_outs, direct):
+        err, ties = top1_rule('w8a8 engine', got, want)
+        score_err, tied = max(score_err, err), tied + ties
+    print(f'w8a8 engine: exported in {export_s:.1f} s, launches {launches}, '
+          f'vs the model scores max err {score_err!r} ({tied} images tied '
+          'at the top)', flush=True)
+
+    # the entropy table, one batch
+    ent_model, _ = _w8a8_model(ckpt, table['entropy'], device)
+    outs, launches = _counted(lambda: [ent_model.inference_fn(batches[0])])
+    _expect('w8a8 entropy', launches, 1, W8A8_CALLS['ResNet50FPN'], 1)
+    _finite_detections('w8a8 entropy', outs)
+    total = {k: total[k] + launches[k] for k in total}
+    del ent_model
+
+    # MobileNetV2FPN: phase 20's checkpoint and absmax table, one batch
+    mobile, _ = _w8a8_model(mobile_ckpt, os.path.join(
+        root, 'axis_mobilenet-export_int8_absmax.calib.json'), device)
+    (m_calls, m_outs), launches = _counted(lambda: _capture_convs(
+        mobile, lambda: [mobile.inference_fn(batches[0])]))
+    _expect('w8a8 MobileNetV2FPN', launches, 1,
+            W8A8_CALLS['MobileNetV2FPN'], 0)
+    _finite_detections('w8a8 MobileNetV2FPN', m_outs)
+    grouped = _hold_convs('w8a8 MobileNetV2FPN', m_calls)
+    total = {k: total[k] + launches[k] for k in total}
+    print(f'w8a8 MobileNetV2FPN: {len(m_calls)} conv calls ({grouped} '
+          f'depthwise) bit-equal to plain, launches {launches}', flush=True)
+    del mobile, m_calls, m_outs
+
+    # reports: gaps and ms beside phase 11's engines, the kernel's times
+    bf16 = Engine.load(engine_path(root, 'axis', 'export', 'bf16'))
+    w8a16 = Engine.load(engine_path(root, 'axis', 'export', 'int8_absmax'))
+    gap = (0.0, 0.0)
+    for x, got in zip(batches, w8a8_engine_outs):
+        gap = tuple(map(max, gap, int8_gaps(got, bf16(x))))
+    ms = {'w8a8 model': _batch_ms(model.inference_fn, batches),
+          'w8a8 engine': _batch_ms(engine, batches),
+          'bf16 engine': _batch_ms(bf16, batches),
+          'w8a16 engine': _batch_ms(w8a16, batches)}
+    row = _conv_times(calls)
+    print(f'w8a8 vs the bf16 engine (top-{INT8_TOP_K} scores max err, the '
+          f'top-1 class\'s gap to the bf16 top score) on {nb} batches: '
+          f'w8a8 {gap}, w8a16 (phase 11, every batch) '
+          f'{int8_err.get("int8_absmax")}', flush=True)
+    print(f'w8a8 ms per batch (b=2, 896 x 1408, wall, synchronized; {smi}): '
+          f'{ms}; phase 11 CLI infer {engine_ms}', flush=True)
+    print(f'w8a8 conv per ResNet50FPN forward ({len(calls)} calls; {smi}): '
+          f'kernel device {row["ms"]:.4f} ms (events {row["event_ms"]:.4f}), '
+          f'bound {row["bound"][0]:.4f} ms by {row["bound"][1]} (bytes-bound '
+          f'calls {row["bound_bytes_ms"]:.4f} ms, operation-bound '
+          f'{row["bound_ops_ms"]:.4f} ms), plain {row["plain_ms"]:.3f} ms, '
+          f'bf16 cuDNN F.conv2d {row["library_ms"]:.4f} ms', flush=True)
+    row['max_abs_err'] = 0.0
+    row['calls_per_forward'] = len(calls)
+    return row, total
+
+
 @contextlib.contextmanager
 def phase(name):
     """Prints the wall seconds the phase took."""
@@ -2613,9 +2947,10 @@ def other_phases(name, root, img_dir, ann, device):
             train_reference_phase(ckpt, device, name='mobilenet-reference')
             depthwise_gradient_phase(ckpt, device)
     with phase(f'{name}-export'):
-        out['engine_ms'], out['engine_stem'] = export_phase(
+        out['engine_ms'], out['engine_stem'], _ = export_phase(
             root, ckpt, img_dir, ann, device, names=engines, stems=stems,
             label=f'{name}-export')
+    out['ckpt'] = ckpt
     return out
 
 
@@ -2629,9 +2964,10 @@ def _row(name, source, replaces, launches, row):
     out = dict(name=name, route='cuda', source=source, replaces=replaces,
                launches=launches, max_abs_err=row['max_abs_err'],
                ms=row['ms'], plain_ms=row['plain_ms'], bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None)
+               bound_by=bound_by, library_ms=row.get('library_ms'))
     out.update({k: row[k] for k in ('engine_shape', 'fp32', 'levels',
-                                    'logits', 'cpp_launches') if k in row})
+                                    'logits', 'cpp_launches', 'event_ms',
+                                    'calls_per_forward') if k in row})
     if 'ms_fwd_bwd' in row:     # row 5: the forward alone, and with its
         out.update(              # backward kernel as autograd runs them
             launches_bwd=row['launches_bwd'], ms_fwd_bwd=row['ms_fwd_bwd'],
@@ -2682,8 +3018,8 @@ def main():
         with phase('train-reference'):
             train_reference_phase(ckpt, device)
         with phase('export'):
-            engine_ms, engine_stem = export_phase(root, ckpt, img_dir, ann,
-                                                  device)
+            engine_ms, engine_stem, int8_err = export_phase(
+                root, ckpt, img_dir, ann, device)
         with phase('ckpt'):
             ckpt_launches = ckpt_phase(root, img_dir, ann, device, smi)
         with phase('fused-stem-flags'):
@@ -2692,6 +3028,10 @@ def main():
             ddp_launches = ddp_phase(root, img_dir, ann, ckpt, device, smi)
         other = {name: other_phases(name, root, img_dir, ann, device)
                  for name in OTHER_MODELS}
+        with phase('w8a8'):
+            w8a8_row, w8a8_launches = w8a8_phase(
+                root, ckpt, other['mobilenet']['ckpt'], img_dir, ann, device,
+                smi, engine_ms, int8_err)
 
         rot_root = os.path.join(root, 'rotated')
         rot_dir, rot_ann = make_data(rot_root, n_images=32, rotated=True,
@@ -2726,7 +3066,7 @@ def main():
         with phase('rotated-train-reference'):
             train_reference_phase(rot_ckpt, device, rotated=True)
         with phase('rotated-export'):
-            rot_engine_ms, rot_engine_stem = export_phase(
+            rot_engine_ms, rot_engine_stem, _ = export_phase(
                 rot_root, rot_ckpt, rot_dir, rot_ann, device, rotated=True)
         axis_engine = engine_path(root, 'axis', 'export', 'bf16')
         with phase('cppapi'):
@@ -2746,7 +3086,8 @@ def main():
              infer_launches['nms'] + ckpt_launches['infer']['nms']
              + flag_launches['nms'] + ddp_launches['nms']
              + sum(o['infer']['nms'] for o in other.values())
-             + cpp['py']['axis'][0] + video_launches['nms'],
+             + cpp['py']['axis'][0] + video_launches['nms']
+             + w8a8_launches['nms'],
              dict(nms_rows['decode'], cpp_launches=cpp['cpp']['axis']['nms'])),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
@@ -2756,7 +3097,7 @@ def main():
              + sum(o['infer']['stem'] + o['engine_stem']
                    for o in other.values())
              + sum(py[1] for py in cpp['py'].values())
-             + video_launches['stem'],
+             + video_launches['stem'] + w8a8_launches['stem'],
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
                  r['max_abs_err'] for r in stem_rows.values()),
                   engine_shape=dict(
@@ -2820,6 +3161,10 @@ def main():
              rot_infer_launches['nms_rotated'] + cpp['py']['rotated'][0],
              dict(rot_nms_rows['decode'],
                   cpp_launches=cpp['cpp']['rotated']['nms_rotated'])),
+        # no Pallas counterpart: the JAX package's int8 conv is XLA's
+        _row('conv_w8a8', csrc + 'conv_w8a8.cu',
+             'odtk_tpu/backbones/layers.py:265', w8a8_launches['conv_w8a8'],
+             w8a8_row),
     ]
     print(f'e2e_ms_per_batch: {batch_ms}')
     print(f'train_ms_per_step: {step_ms}')

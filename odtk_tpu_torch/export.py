@@ -8,13 +8,16 @@ post-processed inference (NHWC normalized f32 images -> heads ->
 programs with the weights and metadata into ONE engine file. The
 hand-written kernels stay in the programs as the ``odtk::nms``,
 ``odtk::nms_rotated`` and ``odtk::bn_relu_pool`` operators
-(``ops/kernels/``): on the card they launch the kernels, on the CPU their
-plain versions. Importing this module registers them, which
-``torch.export.load`` needs.
+(``ops/kernels/``), and ``odtk::conv_w8a8`` in a w8a8 model's: on the
+card they launch the kernels, on the CPU their plain versions. Importing
+this module registers them, which ``torch.export.load`` needs.
 
 Precision: ``FP32``/``fp32``, ``FP16``/``bf16`` (bf16 compute), ``INT8``
 (w8a16: int8 per-channel convolution weights dequantized in the graph,
-bf16 activations; ``calibrate`` fixes which layers). A bf16 engine
+bf16 activations; ``calibrate`` fixes which layers). A model whose module
+``quantize.build_quant_variables(..., mode='w8a8')`` already swapped
+exports at ``bf16`` or ``fp32`` with its int8 convolutions and activation
+scales, as the JAX ``export_model`` does over w8a8 variables. A bf16 engine
 computes under ``torch.autocast`` as the checkpoint path does
 (``Model.heads``), which ``torch.export`` keeps as a ``wrap_with_autocast``
 region: autocast also runs the FPN's nearest upsampling in fp32, so the
@@ -56,6 +59,7 @@ from torch import nn
 
 from .data.coco import IMAGENET_MEAN, IMAGENET_STD
 # the odtk:: operators an engine's programs call
+from .ops.kernels import conv_w8a8 as _conv_w8a8  # noqa: F401
 from .ops.kernels import nms as _nms  # noqa: F401
 from .ops.kernels import nms_rotated as _nms_rotated  # noqa: F401
 from .ops.kernels import stem as _stem  # noqa: F401
@@ -310,6 +314,11 @@ def export_cpp_engine(model, size, batch=1, path='model.cppengine',
             'INT8 .cppengine: the C++ engine is fp32 or bf16 (a w8a16 '
             'program is the .engine\'s); export without --int8, or write '
             'an INT8 .engine')
+    if any(getattr(m, 'act_scale', None) is not None
+           for m in model.module.modules()):
+        raise ValueError(
+            'w8a8 .cppengine: the C++ samples register no int8 convolution '
+            '(odtk::conv_w8a8); write a w8a8 model as an .engine')
     size = _round_size(model, size)
     dtype = _dtype_of(precision)
     model.set_dtype(dtype)

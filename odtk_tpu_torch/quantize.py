@@ -1,4 +1,5 @@
-"""Post-training INT8 quantization: calibration and int8 (w8a16) weights.
+"""Post-training INT8 quantization: calibration, int8 weights (w8a16) and
+int8 weights and activations (w8a8).
 
 Counterpart of ``odtk_tpu/quantize.py``:
 
@@ -11,8 +12,13 @@ Counterpart of ``odtk_tpu/quantize.py``:
     persists the table.
   * ``build_quant_variables`` — swaps each calibrated convolution for a
     ``QuantConv2d`` holding int8 per-output-channel weights and their fp32
-    scales (the w8a16 form that ``export_model`` uses: weights
-    dequantized in the graph, activations in the compute dtype).
+    scales: the w8a16 form that ``export_model`` uses (weights dequantized
+    in the graph, activations in the compute dtype), or with
+    ``mode='w8a8'`` also the layer's activation scale, for a convolution
+    in int8 with int32 sums (the ``odtk::conv_w8a8`` kernel on the card).
+    A model so swapped runs w8a8 in ``Model.heads``, its inference and an
+    ``Engine`` exported from it, as the JAX package's variables with
+    ``quant/act_scale`` do.
   * ``quantize_weights``/``dequantize_weights``/``quantize_model`` — the
     storage-only helpers and the fake-quant experiment path.
 
@@ -191,16 +197,20 @@ def build_quant_variables(module, act_absmax, mode='w8a16'):
     """Swap every ``nn.Conv2d`` of ``module`` whose name has a calibrated
     range in ``act_absmax`` for a ``QuantConv2d`` with int8
     per-output-channel weights (in place). Returns (module, stats) with
-    the JAX package's stats keys.
+    the JAX package's stats keys (``odtk_tpu/quantize.py:
+    build_quant_variables``).
 
-    Only ``mode='w8a16'`` is ported: PyTorch has no int8 convolution for
-    the w8a8 form (``odtk_tpu/backbones/layers.py:265-305``)."""
+    ``mode='w8a16'``: int8 weights dequantized in the forward, activations
+    in the compute dtype (the form ``export_model`` uses). ``mode='w8a8'``:
+    also the activations in int8, each layer's scale ``act_scale`` =
+    max(absmax, 1e-8) / 127 computed as the JAX package computes it (a
+    Python float division, rounded to fp32 after), and the convolution in
+    int8 with int32 sums (``odtk::conv_w8a8``)."""
     from .backbones.layers import QuantConv2d
 
-    if mode != 'w8a16':
-        raise NotImplementedError(
-            f'quantization mode {mode!r} is not ported yet (ROADMAP Queue 1 '
-            'item 10, w8a8 int8 convolutions); use w8a16')
+    if mode not in ('w8a16', 'w8a8'):
+        raise ValueError(f'unknown quantization mode {mode!r} '
+                         '(w8a16 or w8a8)')
     n_q, fp_bytes, q_bytes = 0, 0, 0
     for name, conv in list(module.named_modules()):
         if not isinstance(conv, nn.Conv2d) or name not in act_absmax:
@@ -208,9 +218,15 @@ def build_quant_variables(module, act_absmax, mode='w8a16'):
         q, w_scale = _quantize_kernel(conv.weight)
         fp_bytes += conv.weight.numel() * 4
         q_bytes += q.numel() + w_scale.numel() * 4
+        act_scale = None
+        if mode == 'w8a8':
+            act_scale = torch.tensor(
+                np.float32(max(act_absmax[name], 1e-8) / 127.0),
+                device=conv.weight.device)
         parent, _, leaf = name.rpartition('.')
         owner = module.get_submodule(parent) if parent else module
-        setattr(owner, leaf, QuantConv2d.from_conv(conv, q, w_scale))
+        setattr(owner, leaf, QuantConv2d.from_conv(conv, q, w_scale,
+                                                   act_scale))
         n_q += 1
     stats = {'quantized_tensors': n_q, 'fp32_bytes': int(fp_bytes),
              'int8_bytes': int(q_bytes),

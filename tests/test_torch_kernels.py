@@ -19,6 +19,7 @@ from odtk_tpu_torch.ops.assign import level_anchors
 from odtk_tpu_torch.ops.iou_rotated import (pack_active, quad_areas,
                                             sincos_box_corners)
 from odtk_tpu_torch.ops.kernels import _build
+from odtk_tpu_torch.ops.kernels import conv_w8a8 as kconv
 from odtk_tpu_torch.ops.kernels import focal as kfocal
 from odtk_tpu_torch.ops.kernels import loss as kloss
 from odtk_tpu_torch.ops.kernels import match_rotated as kmatch
@@ -125,6 +126,13 @@ def test_kernel_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         kstem.bn_relu_pool(torch.zeros(1, 2, 4, 4, device='meta'),
                            torch.ones(2), torch.zeros(2))
+    with pytest.raises(ValueError):
+        kconv.conv_w8a8(torch.zeros(1, 2, 4, 4, device='meta'),
+                        torch.zeros(3, 1, 1, 16, dtype=torch.int8,
+                                    device='meta'),
+                        torch.ones(3, device='meta'),
+                        torch.ones((), device='meta'), None, (1, 1), (0, 0),
+                        1, torch.float32)
 
 
 def test_nms_plain_semantics():
@@ -141,8 +149,9 @@ def test_nms_plain_semantics():
 
 def test_build_compiles_every_source_for_sm90a():
     names = sorted(p.rsplit('/', 1)[-1] for p in _build.sources())
-    assert names == ['det_loss.cu', 'focal_sum.cu', 'match_rotated.cu',
-                     'nms.cu', 'nms_rotated.cu', 'stem_pool.cu']
+    assert names == ['conv_w8a8.cu', 'det_loss.cu', 'focal_sum.cu',
+                     'match_rotated.cu', 'nms.cu', 'nms_rotated.cu',
+                     'stem_pool.cu']
     assert [p.rsplit('/', 1)[-1] for p in _build.headers()] == [
         'focal.cuh', 'nms_scan.cuh', 'quad_iou.cuh']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
@@ -1064,3 +1073,87 @@ def test_cpp_runtime_runs_the_kernels(cuda_device, tmp_path):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
     assert (want[0] > 0).sum() > 0
+
+
+# ------------------------------------------------- w8a8 convolution
+
+def conv_w8a8_case(b, c, h, w, o, k, stride, groups, bias, in_dtype,
+                   device, seed=0):
+    """The w8a8 operator's arguments: x N(0, 2) with NaN, +inf and -inf
+    planted and values on .5 code boundaries (act_scale 0.25), a random
+    int8 weight in the kernel's layout, scales as calibration makes them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g) * 2
+    flat = x.view(-1)
+    flat[:24] = (torch.randint(-300, 300, (24,), generator=g) + 0.5) * 0.25
+    flat[31], flat[37], flat[-1] = float('nan'), float('inf'), -float('inf')
+    wq = torch.randint(-127, 128, (o, c // groups, k, k), generator=g,
+                       dtype=torch.int8)
+    w_scale = torch.rand(o, generator=g) * 0.01 + 1e-3
+    bvec = torch.randn(o, generator=g) if bias else None
+    return (x.to(device, in_dtype), kconv.pack_weight(wq).to(device),
+            w_scale.to(device), torch.tensor(0.25, device=device),
+            None if bvec is None else bvec.to(device),
+            (stride, stride), (k // 2, k // 2), groups)
+
+
+# (b, c, h, w, o, kernel, stride, groups, bias): the conv kinds of the
+# w8a8 path, the stem's 7x7/s2 over 3 channels (K = 7 x 7 x 16 = 784, not a
+# multiple of the 64-byte stage), a 1x1 with K = 16, odd sizes, batch 1 and
+# 3, output channels off the 64 / 128 tiles (36, 72, 720), depthwise with
+# and without bias
+CONV_CASES = {
+    'stem_7x7s2_c3': (2, 3, 37, 51, 64, 7, 2, 1, False),
+    '1x1_k16': (3, 16, 9, 13, 24, 1, 1, 1, True),
+    '1x1_c256': (1, 256, 15, 21, 64, 1, 1, 1, False),
+    '3x3s1_odd': (3, 40, 17, 23, 72, 3, 1, 1, True),
+    '3x3s2_p6': (1, 512, 7, 11, 256, 3, 2, 1, True),
+    'head_720': (2, 256, 7, 11, 720, 3, 1, 1, True),
+    'head_36': (1, 256, 5, 9, 36, 3, 1, 1, True),
+    'depthwise': (2, 96, 19, 25, 96, 3, 1, 96, False),
+    'depthwise_s2_bias': (3, 144, 15, 13, 144, 3, 2, 144, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize('name', list(CONV_CASES))
+def test_conv_w8a8_kernel_bit_equal_plain(cuda_device, name, dtypes):
+    """The kernel (quantize pass, then the implicit GEMM or, grouped, the
+    direct kernel) equal to the plain version bit for bit, NaN and +-inf
+    inputs included, fp32 and bf16 in and out; one launch counted."""
+    in_dtype, out_dtype = dtypes
+    args = conv_w8a8_case(*CONV_CASES[name], in_dtype, cuda_device)
+    before = kconv.conv_w8a8.launches
+    got = kconv.conv_w8a8(*args, out_dtype)
+    torch.cuda.synchronize()
+    assert kconv.conv_w8a8.launches == before + 1
+    want = kconv.conv_w8a8_plain(*args, out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_w8a8_launch_error_raises(cuda_device):
+    """A launch the card refuses (a grid of more than 65535 blocks of
+    output channels) raises from the wrapper and counts no launch; a
+    tensor on another device or not contiguous is refused before."""
+    o = 65536 * 128 + 1
+    x = torch.randn(1, 16, 1, 1, device=cuda_device)
+    w = torch.zeros(o, 1, 1, 16, dtype=torch.int8, device=cuda_device)
+    args = (w, torch.ones(o, device=cuda_device),
+            torch.tensor(0.1, device=cuda_device), None, (1, 1), (0, 0), 1,
+            torch.float32)
+    before = kconv.conv_w8a8.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        kconv.conv_w8a8(x, *args)
+    assert kconv.conv_w8a8.launches == before
+    del w
+    small = conv_w8a8_case(1, 8, 5, 5, 8, 3, 1, 1, False, torch.float32,
+                           cuda_device)
+    with pytest.raises(ValueError):
+        kconv.conv_w8a8(small[0].cpu(), *small[1:], torch.float32)
+    with pytest.raises(ValueError):
+        kconv.conv_w8a8(small[0].transpose(2, 3), *small[1:], torch.float32)

@@ -251,8 +251,3 @@ def test_quantized_model_still_infers():
     after = model.forward_heads(x)[0][0]
     assert (after - before).abs().mean() < 0.2
     assert torch.isfinite(model.inference_fn(x)[0]).all()
-
-
-def test_w8a8_is_not_ported():
-    with pytest.raises(NotImplementedError, match='Queue 1 item 10'):
-        quantize.build_quant_variables(_fresh_model().module, {}, mode='w8a8')
