@@ -2599,7 +2599,6 @@ def video_phase(ckpt, engine_path, img_dir, root, device, smi):
 
 # ------------------------------------------------------------ w8a8 (31)
 
-INT8_OPS_PER_MS = 1979e12 / 1e3     # H100 SXM int8 tensor cores, dense
 W8A8_BATCHES = 4
 W8A8_CALLS = {'ResNet50FPN': 111, 'MobileNetV2FPN': 109}
 W8A8_PLAIN_RUNS = 3
@@ -2620,40 +2619,16 @@ def _w8a8_model(ckpt, table_path, device):
     return model, stats
 
 
-def _capture_convs(model, fn):
-    """Runs ``fn`` with a forward hook on every w8a8 convolution: [(conv,
-    its input, its output)] of each call, in order, cloned."""
-    from odtk_tpu_torch.backbones.layers import QuantConv2d
-
-    calls = []
-
-    def hook(module, args, out):
-        calls.append((module, args[0].clone(), out.clone()))
-
-    handles = [m.register_forward_hook(hook) for m in model.module.modules()
-               if isinstance(m, QuantConv2d)]
-    try:
-        result = fn()
-    finally:
-        for h in handles:
-            h.remove()
-    return calls, result
-
-
-def _conv_args(conv, x, out_dtype):
-    return (x, conv.weight, conv.w_scale, conv.act_scale, conv.bias,
-            conv.stride, conv.padding, conv.groups, out_dtype)
-
-
 def _hold_convs(label, calls):
     """Every captured call's output (the kernel's, in the main path) equal
     bit for bit to the plain version on the same input; returns the
     count and the largest error (0.0)."""
     from odtk_tpu_torch.ops.kernels import conv_w8a8
+    from odtk_tpu_torch.profile_w8a8 import conv_args
 
     grouped = 0
     for i, (conv, x, y) in enumerate(calls):
-        want = conv_w8a8.conv_w8a8_plain(*_conv_args(conv, x, y.dtype))
+        want = conv_w8a8.conv_w8a8_plain(*conv_args(conv, x, y.dtype))
         if not torch.equal(y, want):
             raise AssertionError(
                 f'{label}: conv call {i} ({list(x.shape)} {x.dtype} -> '
@@ -2662,17 +2637,6 @@ def _hold_convs(label, calls):
                 f'{int((y != want).sum())} elements')
         grouped += conv.groups > 1
     return grouped
-
-
-def _conv_bound(conv, x, y):
-    """(ms by bytes, ms by int8 operations) of one call: x read, the int8
-    weight, scales and bias read, y written; 2 M N K operations."""
-    o, kh, kw, _ = conv.weight.shape
-    cin_g = x.shape[1] // conv.groups
-    nbytes = (x.numel() * x.element_size() + o * kh * kw * cin_g + 8 * o
-              + y.numel() * y.element_size())
-    ops = 2.0 * y.numel() * kh * kw * cin_g
-    return nbytes / HBM_BYTES_PER_MS, ops / INT8_OPS_PER_MS
 
 
 def _profiled_ms(fn, keep, runs=5):
@@ -2704,8 +2668,9 @@ def _conv_times(calls):
     import torch.nn.functional as F
 
     from odtk_tpu_torch.ops.kernels import conv_w8a8
+    from odtk_tpu_torch.profile_w8a8 import conv_args, conv_bound
 
-    args = [_conv_args(conv, x, y.dtype) for conv, x, y in calls]
+    args = [conv_args(conv, x, y.dtype) for conv, x, y in calls]
 
     def kernels():
         for a in args:
@@ -2728,7 +2693,7 @@ def _conv_times(calls):
         for a in lib:
             F.conv2d(*a)
 
-    ours = ('quantize_nhwc_kernel', 'conv_igemm_kernel',
+    ours = ('quantize_nhwc', 'conv_wgmma_kernel', 'conv_finish_kernel',
             'conv_direct_kernel')
     ms = _profiled_ms(kernels, lambda n: any(k in n for k in ours))
     event_ms = _median_ms(kernels, runs=5, warmup=1)
@@ -2736,7 +2701,7 @@ def _conv_times(calls):
     library_ms = _profiled_ms(library, lambda n: True)
     t_bytes = t_ops = bound = 0.0
     for conv, x, y in calls:
-        b_ms, o_ms = _conv_bound(conv, x, y)
+        b_ms, o_ms = conv_bound(conv, x, y)
         bound += max(b_ms, o_ms)
         t_bytes += b_ms if b_ms >= o_ms else 0.0
         t_ops += o_ms if o_ms > b_ms else 0.0
@@ -2794,11 +2759,16 @@ def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
     """Phase 31: ``build_quant_variables(mode='w8a8')`` on phase 4's
     ResNet50FPN with phase 11's absmax table at bf16, and the model, its
     engine, the entropy table and phase 20's MobileNetV2FPN through the
-    ``odtk::conv_w8a8`` kernel, each conv call held to plain bit for bit.
-    Returns the kernel row and the stem and NMS launches of its runs."""
+    ``odtk::conv_w8a8`` kernel, each conv call held to plain bit for bit;
+    then the first batch's calls by call class (``profile_w8a8``) and the
+    host us a call. Returns the kernel row and the stem and NMS launches
+    of its runs."""
     from odtk_tpu_torch.data import DataIterator
     from odtk_tpu_torch.export import Engine, export_model
     from odtk_tpu_torch.ops.kernels import conv_w8a8
+    from odtk_tpu_torch.profile_w8a8 import (capture_calls, class_table,
+                                             conv_args, format_table,
+                                             host_us)
 
     table = {name: os.path.join(root, f'axis_export_int8_{name}.calib.json')
              for name in ('absmax', 'entropy')}
@@ -2815,7 +2785,7 @@ def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
 
     # the model: four batches, every conv call of the first captured
     def run_model():
-        calls, first = _capture_convs(
+        calls, first = capture_calls(
             model, lambda: model.inference_fn(batches[0]))
         return calls, [first] + [model.inference_fn(x) for x in batches[1:]]
 
@@ -2829,7 +2799,7 @@ def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
     x = x.clone()
     x[0, 0, 0, 0], x[0, 1, 1, 1] = float('nan'), float('inf')
     x[-1, -1, -1, -1] = -float('inf')
-    args = _conv_args(conv, x, y.dtype)
+    args = conv_args(conv, x, y.dtype)
     if not torch.equal(conv_w8a8.conv_w8a8(*args),
                        conv_w8a8.conv_w8a8_plain(*args)):
         raise AssertionError('w8a8: kernel != plain with NaN and +-inf '
@@ -2868,7 +2838,7 @@ def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
     # MobileNetV2FPN: phase 20's checkpoint and absmax table, one batch
     mobile, _ = _w8a8_model(mobile_ckpt, os.path.join(
         root, 'axis_mobilenet-export_int8_absmax.calib.json'), device)
-    (m_calls, m_outs), launches = _counted(lambda: _capture_convs(
+    (m_calls, m_outs), launches = _counted(lambda: capture_calls(
         mobile, lambda: [mobile.inference_fn(batches[0])]))
     _expect('w8a8 MobileNetV2FPN', launches, 1,
             W8A8_CALLS['MobileNetV2FPN'], 0)
@@ -2902,6 +2872,20 @@ def w8a8_phase(root, ckpt, mobile_ckpt, img_dir, ann, device, smi,
           f'calls {row["bound_bytes_ms"]:.4f} ms, operation-bound '
           f'{row["bound_ops_ms"]:.4f} ms), plain {row["plain_ms"]:.3f} ms, '
           f'bf16 cuDNN F.conv2d {row["library_ms"]:.4f} ms', flush=True)
+    names = {m: n for n, m in model.module.named_modules()}
+    classes = class_table(calls, names, batches[0].shape[1])
+    print(f'w8a8 conv by call class (device ms a forward, profiler; bound '
+          f'per call; {smi}):', flush=True)
+    for line in format_table(classes):
+        print('  ' + line, flush=True)
+    row['host_us'] = host_us([conv_args(conv, x, y.dtype)
+                              for conv, x, y in calls])
+    row['int_mm'] = classes['1x1 stride-1']
+    print(f'w8a8 host us a conv call (111 enqueues, no sync): '
+          f'{row["host_us"]:.2f}; the {row["int_mm"]["calls"]} 1x1 '
+          f'stride-1 calls: kernel {row["int_mm"]["ms"]:.4f} ms, '
+          f'torch._int_mm (cuBLASLt int8 GEMM, A quantized) '
+          f'{row["int_mm"]["int_mm_ms"]:.4f} ms', flush=True)
     row['max_abs_err'] = 0.0
     row['calls_per_forward'] = len(calls)
     return row, total
@@ -2967,7 +2951,12 @@ def _row(name, source, replaces, launches, row):
                bound_by=bound_by, library_ms=row.get('library_ms'))
     out.update({k: row[k] for k in ('engine_shape', 'fp32', 'levels',
                                     'logits', 'cpp_launches', 'event_ms',
-                                    'calls_per_forward') if k in row})
+                                    'calls_per_forward', 'host_us')
+                if k in row})
+    if 'int_mm' in row:         # row 10's int8 GEMM yardstick, 1x1 calls
+        out.update(int_mm_calls=row['int_mm']['calls'],
+                   int_mm_kernel_ms=row['int_mm']['ms'],
+                   int_mm_library_ms=row['int_mm']['int_mm_ms'])
     if 'ms_fwd_bwd' in row:     # row 5: the forward alone, and with its
         out.update(              # backward kernel as autograd runs them
             launches_bwd=row['launches_bwd'], ms_fwd_bwd=row['ms_fwd_bwd'],

@@ -58,8 +58,9 @@ class QuantConv2d(nn.Module):
     int8 weight into int32, rescaled by act_scale * w_scale and biased
     (``ops/kernels/conv_w8a8.py``: the ``odtk::conv_w8a8`` operator, a
     CUDA kernel on the card). The weight is stored in the kernel's layout,
-    int8 [O, kh, kw, Cg] with the group's input channels padded to Cg, a
-    multiple of 16 (``pack_weight``, once here). The output is in the
+    int8 [O, kh, kw, Cg] with the group's input channels padded to Cg: 4
+    for up to 4 (the stem's 3), else a multiple of 16 (``pack_weight``,
+    once here). The output is in the
     compute dtype as the JAX ``y.astype(self.dtype)``: autocast's dtype
     where autocast is on (a custom operator is not autocast, so an fp32
     input in a bf16 region still gives bf16), else the input's."""

@@ -53,7 +53,9 @@ _SIGNATURES = {
                        _L, _F, _F, _P],
     'odtk_focal_sum_dx': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                           _L, _F, _F, _P],
-    'odtk_conv_w8a8': [_P, _I, _P, _P, _P, _P, _P, _P, _I] + [_I] * 14 + [_P],
+    'odtk_conv_w8a8': [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I]
+                      + [_I] * 18 + [_P],
+    'odtk_conv_w8a8_weight_map': [_P, _I, _I, _I, _P],
 }
 
 

@@ -1098,10 +1098,15 @@ def conv_w8a8_case(b, c, h, w, o, k, stride, groups, bias, in_dtype,
 
 
 # (b, c, h, w, o, kernel, stride, groups, bias): the conv kinds of the
-# w8a8 path, the stem's 7x7/s2 over 3 channels (K = 7 x 7 x 16 = 784, not a
-# multiple of the 64-byte stage), a 1x1 with K = 16, odd sizes, batch 1 and
-# 3, output channels off the 64 / 128 tiles (36, 72, 720), depthwise with
-# and without bias
+# w8a8 path, the stem's 7x7/s2 over 3 channels (K = 7 x 7 x 4 = 196, not a
+# multiple of the 128-byte K tile), a 1x1 with K = 16, odd sizes, batch 1
+# and 3, output channels off the 64 / 128 / 256 tiles (36, 72, 720),
+# depthwise with and without bias; then the plan's routes at larger
+# sizes: P6's K = 18,432 split over 29 slices, 128-pixel tiles that cross
+# image boundaries, N = 720 and 36 at P3's M (b=2, 112 x 176), conv1 over
+# 3 channels on 4,928 tiles, a grid of more work units than SMs, and the
+# packed route (up to 4 input channels, a tap a 4-byte word) of
+# MobileNetV2FPN's stem and of a single channel
 CONV_CASES = {
     'stem_7x7s2_c3': (2, 3, 37, 51, 64, 7, 2, 1, False),
     '1x1_k16': (3, 16, 9, 13, 24, 1, 1, 1, True),
@@ -1112,6 +1117,28 @@ CONV_CASES = {
     'head_36': (1, 256, 5, 9, 36, 3, 1, 1, True),
     'depthwise': (2, 96, 19, 25, 96, 3, 1, 96, False),
     'depthwise_s2_bias': (3, 144, 15, 13, 144, 3, 2, 144, True),
+    'p6_split_k': (1, 2048, 7, 11, 256, 3, 2, 1, True),
+    'm_tail_images': (3, 64, 9, 15, 128, 3, 1, 1, True),
+    'head_720_p3': (2, 256, 112, 176, 720, 3, 1, 1, True),
+    'head_36_p3': (2, 256, 112, 176, 36, 3, 1, 1, True),
+    'stem_c3_conv1': (2, 3, 896, 1408, 64, 7, 2, 1, False),
+    'more_units_than_sms': (2, 64, 56, 88, 256, 1, 1, 1, False),
+    'mobilenet_stem_c3': (2, 3, 96, 144, 32, 3, 2, 1, False),
+    'one_channel': (1, 1, 20, 30, 16, 3, 1, 1, True),
+}
+
+# what the plan must give the cases that exist for a route
+CONV_CASE_PLANS = {
+    'p6_split_k': lambda p: p.splits == 29 and p.route == 'gather',
+    'm_tail_images': lambda p: p.m % kconv.TILE_M != 0,
+    'head_720_p3': lambda p: p.splits == 1 and p.bn == 256,
+    'head_36_p3': lambda p: p.splits == 1 and p.bn == 64,
+    'stem_c3_conv1': lambda p: p.m_tiles == 4928,
+    'more_units_than_sms': lambda p: (p.route == 'dense'
+                                      and p.units > kconv.SMS),
+    'stem_7x7s2_c3': lambda p: p.route == 'packed' and p.k_tiles == 2,
+    'mobilenet_stem_c3': lambda p: p.route == 'packed',
+    'one_channel': lambda p: p.route == 'packed',
 }
 
 
@@ -1121,11 +1148,17 @@ CONV_CASES = {
                                     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize('name', list(CONV_CASES))
 def test_conv_w8a8_kernel_bit_equal_plain(cuda_device, name, dtypes):
-    """The kernel (quantize pass, then the implicit GEMM or, grouped, the
-    direct kernel) equal to the plain version bit for bit, NaN and +-inf
-    inputs included, fp32 and bf16 in and out; one launch counted."""
+    """The kernel (quantize pass, then the wgmma implicit GEMM, with the
+    finish kernel where K is split, or, grouped, the direct kernel) equal
+    to the plain version bit for bit, NaN and +-inf inputs included, fp32
+    and bf16 in and out; one launch counted."""
     in_dtype, out_dtype = dtypes
     args = conv_w8a8_case(*CONV_CASES[name], in_dtype, cuda_device)
+    if name in CONV_CASE_PLANS:
+        b, c, h, w = args[0].shape
+        o, kh, kw, _ = args[1].shape
+        assert CONV_CASE_PLANS[name](kconv.plan(b, c, h, w, o, kh, kw,
+                                                *args[5], *args[6], args[7]))
     before = kconv.conv_w8a8.launches
     got = kconv.conv_w8a8(*args, out_dtype)
     torch.cuda.synchronize()
@@ -1137,12 +1170,13 @@ def test_conv_w8a8_kernel_bit_equal_plain(cuda_device, name, dtypes):
 
 @pytest.mark.cuda
 def test_conv_w8a8_launch_error_raises(cuda_device):
-    """A launch the card refuses (a grid of more than 65535 blocks of
-    output channels) raises from the wrapper and counts no launch; a
-    tensor on another device or not contiguous is refused before."""
-    o = 65536 * 128 + 1
-    x = torch.randn(1, 16, 1, 1, device=cuda_device)
-    w = torch.zeros(o, 1, 1, 16, dtype=torch.int8, device=cuda_device)
+    """A launch the card refuses (a quantize pass of more than 65535
+    blocks of 64 channels) raises from the wrapper and counts no launch;
+    a tensor on another device or not contiguous is refused before."""
+    o, c = 16, 65536 * 64 + 1
+    x = torch.zeros(1, c, 1, 1, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros(o, 1, 1, kconv.padded(c), dtype=torch.int8,
+                    device=cuda_device)
     args = (w, torch.ones(o, device=cuda_device),
             torch.tensor(0.1, device=cuda_device), None, (1, 1), (0, 0), 1,
             torch.float32)
@@ -1150,7 +1184,7 @@ def test_conv_w8a8_launch_error_raises(cuda_device):
     with pytest.raises(RuntimeError, match='CUDA error'):
         kconv.conv_w8a8(x, *args)
     assert kconv.conv_w8a8.launches == before
-    del w
+    del w, x
     small = conv_w8a8_case(1, 8, 5, 5, 8, 3, 1, 1, False, torch.float32,
                            cuda_device)
     with pytest.raises(ValueError):
