@@ -8,7 +8,8 @@ source, in parallel), drives the port's main paths through its CLI
 (``odtk_tpu_torch.main``) on ResNet50FPN at its published widths (80
 classes, FPN 256; 9 anchors axis-aligned, 27 rotated with a box head of
 6 x 27; random weights from a seed, synthetic COCO JPEGs from
-``tests/synth.py``, resize 800 / max 1333, bf16): train, infer, and
+``tests/synth.py``, resize 800 / max 1333, bf16): train (from the
+ImageNet default init on the yuv420 feed as well), infer, and
 export with infer on the engines, axis-aligned and rotated; then the
 same for ResNet34C4, MobileNetV2FPN and ResNet50FPN + MobileNetV2FPN
 in one model; a ResNet50FPN run's files (``.ckpt`` checkpoints,
@@ -187,6 +188,22 @@ it, and prints each phase's wall seconds:
      and the kernel's device time over one forward's 111 calls beside its
      bound, the plain version and bf16 cuDNN ``F.conv2d`` on the same
      shapes (the yardstick ``library_ms``).
+ 32. pretrained-yuv420 (``pretrained_yuv420_phase``, run after phase 4):
+     the default ImageNet init and the yuv420 feed. A numpy-seeded
+     torchvision-named ResNet50 file (``resnet50-19c8e357.pth``) in a
+     temporary ``ODTK_WEIGHTS_DIR``, ``urlopen`` patched to raise, so a
+     cache miss fails the phase; ``main.load_model`` fills the backbone
+     with it bit for bit; ``train --feed yuv420`` for 5 steps at batch 8
+     (lr 0.001) from that init: the zoo consulted, the yuv420 assembly
+     once a step and the u8 one never, the stem's argmax forward and
+     backward and the loss's forward and backward once a step, finite
+     losses, the step's ms on the device clock; ``infer`` of its
+     checkpoint (batch 2) with ``ODTK_EVAL_FEED=yuv420`` and ``u8``: NMS
+     and the primal stem once a batch, every batch's detections finite,
+     zero-padded and score-descending, the yuv420 input on the card
+     within 1e-6 of ``eval_normalize_yuv`` on the CPU; prints the top-10
+     score gap between the two feeds (not gated) and the host converter's
+     route (native or numpy) and ms an 800 x 1067 image.
 
 Any failure raises, and the script exits non-zero. It needs a CUDA
 device; without one it fails before printing any result. Kernel times
@@ -230,7 +247,7 @@ ROTATED_MAX_BOXES = 24              # dense targets for the matcher
 # HBM3, 700 W); 25 is the clip odtk-tpu train's help gives for rotated
 # fine-tunes
 ROTATED_CLIP_GRADS = 25.0
-# from random weights (the port fetches no pretrained backbone) the
+# from seeded random weights (the train phases pass --no-pretrained) the
 # unnormalized ResNet50 diverges within 20 steps at lr 0.01 on the card
 TRAIN_LR = 0.001
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM device memory, bytes / ms
@@ -573,7 +590,8 @@ def train_phase(root, img_dir, ann, rotated=False,
     """``odtk-tpu-torch train`` (``--rotated-bbox`` when rotated) of
     ``backbones`` (ResNet50FPN, or another model of ``other_phases``), 80
     classes, bf16, b=8, resize 800 / max 1333, ``steps`` steps from a
-    seeded random init; each kernel launched ``expected_launches`` times.
+    seeded random init (``--no-pretrained``); each kernel launched
+    ``expected_launches`` times.
     Returns the checkpoint, the launch counts of the run, the loss inputs
     of its first step (for the loss phases), the assignment inputs of its
     first step (for the rotated-match phases), the median ms per step and
@@ -624,7 +642,8 @@ def train_phase(root, img_dir, ann, rotated=False,
             '--batch', str(TRAIN_BATCH), '--resize', '800',
             '--max-size', '1333', '--jitter', '800', '800',
             '--iters', str(steps), '--warmup', str(WARMUP),
-            '--milestones', str(steps), '--lr', str(TRAIN_LR)]
+            '--milestones', str(steps), '--lr', str(TRAIN_LR),
+            '--no-pretrained']
             + (['--rotated-bbox', '--clip-grads', str(ROTATED_CLIP_GRADS)]
                if rotated else []))
     finally:
@@ -943,6 +962,255 @@ def ckpt_phase(root, img_dir, ann, device, smi):
           f'largest difference {diff}; {time.perf_counter() - wall:.1f} s '
           'wall', flush=True)
     return {'train': launches, 'infer': infer_launches}
+
+
+PRETRAINED_STEPS = 5
+ZOO_SEED = 16
+
+
+def zoo_resnet50(directory, seed=ZOO_SEED):
+    """A torchvision-named ResNet50 state_dict drawn by numpy from
+    ``seed`` (convolutions Kaiming-normal over the fan-out, as the port's
+    own init; batch norms near identity; the ``fc`` head; a
+    ``num_batches_tracked`` a batch norm), written as the model zoo's
+    file name in ``directory``. Returns the path and the backbone tensors
+    the model should hold, under its names. (He-normal over the fan-in
+    made the frozen-BN trunk's activations grow block by block, and the
+    first yuv420 step went non-finite at lr 0.001 on the card.)"""
+    from odtk_tpu_torch.io.model_zoo import ZOO_URLS
+    from odtk_tpu_torch.model import Model
+
+    name = 'ResNet50FPN'
+    rng = np.random.RandomState(seed)
+    feats = Model(name, classes=80).module.backbones[name].features
+    sd = {}
+    for k, v in feats.state_dict().items():
+        shape = tuple(v.shape)
+        if len(shape) == 4:
+            fan_out = shape[0] * shape[2] * shape[3]
+            x = rng.randn(*shape) * math.sqrt(2.0 / fan_out)
+        elif k.endswith(('running_var', 'weight')):
+            x = 1 + 0.05 * rng.rand(*shape)
+        else:
+            x = 0.05 * rng.randn(*shape)
+        sd[k] = torch.from_numpy(x.astype(np.float32))
+        if k.endswith('running_var'):
+            sd[k[:-len('running_var')] + 'num_batches_tracked'] = \
+                torch.tensor(1000)
+    sd['fc.weight'] = torch.from_numpy(
+        (0.01 * rng.randn(1000, 2048)).astype(np.float32))
+    sd['fc.bias'] = torch.zeros(1000)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, ZOO_URLS[name].rsplit('/', 1)[-1])
+    torch.save(sd, path)
+    prefix = f'backbones.{name}.features.'
+    return path, {prefix + k: v for k, v in sd.items()
+                  if not k.startswith('fc.')
+                  and not k.endswith('num_batches_tracked')}
+
+
+def _refuse_network(*args, **kwargs):
+    raise AssertionError('pretrained-yuv420: a cache miss reached the '
+                         'network')
+
+
+def _counting(counts, key, fn):
+    def wrapper(*args, **kwargs):
+        counts[key] = counts.get(key, 0) + 1
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def pretrained_yuv420_phase(root, img_dir, ann, smi):
+    """The default ImageNet init and the yuv420 feed through the CLI,
+    ResNet50FPN at full width (the train phase's data, batch, sizes and
+    lr): a seeded torchvision-named ResNet50 file in a temporary
+    ``ODTK_WEIGHTS_DIR`` (``urlopen`` raising, so a cache miss fails the
+    phase); ``main.load_model`` fills the backbone with it bit for bit;
+    ``train --feed yuv420`` for PRETRAINED_STEPS steps from that init
+    (the zoo consulted, the yuv420 assembly once a step and the u8 one
+    never, rows 3-5 once a step, finite losses, step ms on the device
+    clock); ``infer`` of its checkpoint with ``ODTK_EVAL_FEED=yuv420``
+    and ``u8`` (rows 1 and 2 once a batch, every batch's detections
+    finite, zero-padded and score-descending; the yuv420 input on the
+    card equal to ``eval_normalize_yuv`` of the same planes on the CPU
+    within 1e-6); prints the top-10 score gap between the two feeds and
+    the host converter's route and ms an image (``_converter_ms``).
+    Returns the launch counts of its train and infer runs and its
+    times."""
+    import urllib.request
+    from unittest import mock
+
+    from odtk_tpu_torch import main as cli
+    from odtk_tpu_torch import train as train_mod
+    from odtk_tpu_torch.io import model_zoo
+    from odtk_tpu_torch.ops import color
+    from odtk_tpu_torch.ops.kernels import loss, stem
+
+    name = 'ResNet50FPN'
+    path, want = zoo_resnet50(os.path.join(root, 'zoo'))
+    ckpt = os.path.join(root, 'r50_pretrained_yuv420.pth')
+    argv = ['train', ckpt, '--images', img_dir, '--annotations', ann,
+            '--backbone', name, '--classes', '80', '--batch',
+            str(TRAIN_BATCH), '--resize', '800', '--max-size', '1333',
+            '--jitter', '800', '800', '--iters', str(PRETRAINED_STEPS),
+            '--warmup', str(WARMUP), '--milestones', str(PRETRAINED_STEPS),
+            '--lr', str(TRAIN_LR), '--feed', 'yuv420', '--device', 'cuda']
+    calls = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(urllib.request, 'urlopen',
+                                              _refuse_network))
+        stack.enter_context(mock.patch.dict(
+            os.environ, {'ODTK_WEIGHTS_DIR': os.path.dirname(path)}))
+        os.environ.pop('ODTK_FEED', None)
+        for module, attr in ((model_zoo, 'fetch'),
+                             (train_mod, 'apply_color_affine_yuv'),
+                             (train_mod, 'apply_color_affine')):
+            stack.enter_context(mock.patch.object(
+                module, attr, _counting(calls, attr, getattr(module, attr))))
+
+        model, _ = cli.load_model(cli.parse(argv))
+        own = model.module.state_dict()
+        for k, v in want.items():
+            if not torch.equal(own[k], v):
+                raise AssertionError(f'pretrained-yuv420: {k} is not the '
+                                     'file\'s')
+        del model, own
+
+        counters = {'det_loss': loss.detection_loss_fwd_kernel,
+                    'det_loss_bwd': loss.detection_loss_bwd_kernel,
+                    'stem_idx': stem.bn_relu_pool_idx,
+                    'stem_bwd': stem.bn_relu_pool_bwd,
+                    'stem_primal': stem.bn_relu_pool}
+        for k in counters.values():
+            k.launches = 0
+        random.seed(0)
+        result = cli.main(argv)
+        train_launches = {n: k.launches for n, k in counters.items()}
+        expect = {n: v for n, v in expected_launches(
+            (name,), False, PRETRAINED_STEPS).items() if n in counters}
+        if train_launches != expect:
+            raise AssertionError(f'pretrained-yuv420 train launches '
+                                 f'{train_launches}, expected {expect}')
+        # the zoo consulted by load_model and again by the run; the
+        # yuv420 assembly every step, the u8 one never
+        if calls != {'fetch': 2, 'apply_color_affine_yuv': PRETRAINED_STEPS}:
+            raise AssertionError(f'pretrained-yuv420: calls {calls}')
+        losses = result['losses']
+        if len(losses) != PRETRAINED_STEPS or not all(
+                math.isfinite(c) and math.isfinite(b) for _, c, b in losses):
+            raise AssertionError(f'pretrained-yuv420 losses: {losses}')
+        step_ms = statistics.median(result['step_ms'][2:])
+        convert = _converter_ms()
+
+        infer_launches, scores, batch_ms, firsts = {}, {}, {}, {}
+        for feed in ('yuv420', 'u8'):
+            with mock.patch.dict(os.environ, {'ODTK_EVAL_FEED': feed}):
+                (infer_launches[feed], scores[feed], batch_ms[feed],
+                 firsts[feed]) = _feed_infer(root, ckpt, img_dir, ann, feed)
+    y, cbcr, sizes, got = firsts['yuv420']
+    ref = color.eval_normalize_yuv(y.cpu(), cbcr.cpu(), sizes.cpu())
+    input_err = (got.cpu() - ref).abs().max().item()
+    if not input_err <= 1e-6:
+        raise AssertionError(f'pretrained-yuv420: the yuv420 input on the '
+                             f'card is {input_err} from the CPU\'s')
+    gap = max((a[:, :10] - b[:, :10]).abs().max().item()
+              for a, b in zip(scores['yuv420'], scores['u8']))
+    print(f'pretrained-yuv420: {name} backbone from {os.path.basename(path)} '
+          f'bit for bit; train --feed yuv420 {PRETRAINED_STEPS} steps, b='
+          f'{TRAIN_BATCH} bf16, launches {train_launches}, {step_ms:.3f} '
+          f'ms/step (device clock, median after 2; {smi}), loss first '
+          f'{losses[0]} last {losses[-1]}; host converter {convert[0]} '
+          f'{convert[1]:.3f} ms an 800 x 1067 image (host clock, median of '
+          f'7); infer yuv420 launches {infer_launches["yuv420"]}, u8 '
+          f'{infer_launches["u8"]}, ms/batch (b=2, device clock, median '
+          f'after the first) yuv420 {batch_ms["yuv420"]:.3f}, u8 '
+          f'{batch_ms["u8"]:.3f}; yuv420 input vs CPU {input_err:.3g}; '
+          f'top-10 score gap yuv420 vs u8 {gap:.6g} (reported, not gated)',
+          flush=True)
+    infer_total = {k: infer_launches['yuv420'][k] + infer_launches['u8'][k]
+                   for k in infer_launches['u8']}
+    return {'train': train_launches, 'infer': infer_total,
+            'step_ms': step_ms, 'batch_ms': batch_ms, 'gap': gap,
+            'convert': convert}
+
+
+def _converter_ms(hw=(800, 1067), runs=7):
+    """The yuv420 loader's RGB -> planes conversion of one seeded image
+    at the train phase's resized size: its route (the native library or
+    the numpy twin, which the loader takes where the library does not
+    build) and its median host ms."""
+    from odtk_tpu_torch.data import loader, native
+
+    rgb = np.random.RandomState(0).randint(0, 256, (*hw, 3), np.uint8)
+    route = 'numpy' if native.rgb_to_yuv420(rgb) is None else 'native'
+    times = []
+    for _ in range(runs):
+        start = time.perf_counter()
+        loader.rgb_to_yuv420(rgb)
+        times.append(1e3 * (time.perf_counter() - start))
+    return route, statistics.median(times)
+
+
+def _feed_infer(root, ckpt, img_dir, ann, feed):
+    """``infer`` of ``ckpt`` on the eval feed that ``ODTK_EVAL_FEED``
+    names: NMS and the primal stem once a batch, every batch's
+    detections finite, zero-padded and score-descending, the JSON
+    non-empty. Returns the launches, each batch's scores, the median ms
+    a batch after the first and, for yuv420, the first batch's planes,
+    sizes and normalized input."""
+    from unittest import mock
+
+    from odtk_tpu_torch import main as cli
+    from odtk_tpu_torch import model as model_mod
+    from odtk_tpu_torch.ops.kernels import nms, stem
+
+    det = os.path.join(root, f'detections_pretrained_{feed}.json')
+    counted = {'nms': nms.nms, 'stem': stem.bn_relu_pool}
+    for k in counted.values():
+        k.launches = 0
+    scores, first = [], []
+    normalize = model_mod.eval_normalize_yuv
+    infer_fn = model_mod.Model.inference_fn
+
+    def capture_input(y, cbcr, sizes):
+        out = normalize(y, cbcr, sizes)
+        if not first:
+            first.extend([y, cbcr, sizes, out])
+        return out
+
+    def capture_output(self, images):
+        s, b, c = out = infer_fn(self, images)
+        zero = s == 0
+        if not (torch.isfinite(s).all() and torch.isfinite(b).all()
+                and (s[:, :-1] >= s[:, 1:]).all()
+                and (b[zero] == 0).all() and (c[zero] == 0).all()):
+            raise AssertionError(f'pretrained-yuv420 {feed}: detections not '
+                                 'finite, zero-padded and descending')
+        scores.append(s.float().cpu())
+        return out
+
+    with mock.patch.object(model_mod, 'eval_normalize_yuv', capture_input), \
+            mock.patch.object(model_mod.Model, 'inference_fn',
+                              capture_output):
+        result = cli.main(['infer', ckpt, '--images', img_dir,
+                           '--annotations', ann, '--batch', '2',
+                           '--threshold', '0.001', '--output', det])
+    launches = {n: k.launches for n, k in counted.items()}
+    batches = len(result['batch_ms'])
+    if launches != {'nms': batches, 'stem': batches} \
+            or len(scores) != batches or bool(first) != (feed == 'yuv420'):
+        raise AssertionError(f'pretrained-yuv420 {feed}: launches '
+                             f'{launches}, {len(scores)} outputs over '
+                             f'{batches} batches')
+    with open(det) as f:
+        dets = json.load(f)['annotations']
+    if not dets or not all(math.isfinite(v) for d in dets
+                           for v in d['bbox'] + [d['score']]):
+        raise AssertionError(f'pretrained-yuv420 {feed}: detections '
+                             f'{dets[:2]}')
+    return (launches, scores, statistics.median(result['batch_ms'][1:]),
+            first)
 
 
 def fused_stem_phase(root, ckpt, img_dir, ann):
@@ -2989,6 +3257,8 @@ def main():
         with phase('train'):
             ckpt, train_launches, levels, _, step_ms, _ = train_phase(
                 root, img_dir, ann)
+        with phase('pretrained-yuv420'):
+            pretrained = pretrained_yuv420_phase(root, img_dir, ann, smi)
         with phase('loss'):
             loss_row = loss_phase(levels)
         with phase('focal-sum'):
@@ -3076,7 +3346,7 @@ def main():
              + flag_launches['nms'] + ddp_launches['nms']
              + sum(o['infer']['nms'] for o in other.values())
              + cpp['py']['axis'][0] + video_launches['nms']
-             + w8a8_launches['nms'],
+             + w8a8_launches['nms'] + pretrained['infer']['nms'],
              dict(nms_rows['decode'], cpp_launches=cpp['cpp']['axis']['nms'])),
         _row('bn_relu_pool', csrc + 'stem_pool.cu',
              pallas + 'stem_kernel.py:99',
@@ -3086,7 +3356,8 @@ def main():
              + sum(o['infer']['stem'] + o['engine_stem']
                    for o in other.values())
              + sum(py[1] for py in cpp['py'].values())
-             + video_launches['stem'] + w8a8_launches['stem'],
+             + video_launches['stem'] + w8a8_launches['stem']
+             + pretrained['infer']['stem'],
              dict(stem_rows[bf16, STEM_SHAPE], max_abs_err=max(
                  r['max_abs_err'] for r in stem_rows.values()),
                   engine_shape=dict(
@@ -3100,6 +3371,7 @@ def main():
              train_launches['stem_idx'] + rot_launches['stem_idx']
              + multi_rot_launches['stem_idx']
              + ckpt_launches['train']['stem_idx'] + ddp_launches['stem_idx']
+             + pretrained['train']['stem_idx']
              + sum(o['train']['stem_idx'] for o in other.values()),
              dict(fwd_rows[bf16], fp32=_times(fwd_rows[torch.float32]))),
         _row('bn_relu_pool_bwd', csrc + 'stem_pool.cu',
@@ -3107,16 +3379,18 @@ def main():
              train_launches['stem_bwd'] + rot_launches['stem_bwd']
              + multi_rot_launches['stem_bwd']
              + ckpt_launches['train']['stem_bwd'] + ddp_launches['stem_bwd']
+             + pretrained['train']['stem_bwd']
              + sum(o['train']['stem_bwd'] for o in other.values()),
              dict(bwd_rows[bf16], max_abs_err=max(
                  r['max_abs_err'] for r in bwd_rows.values()))),
         _row('det_loss', csrc + 'det_loss.cu',
              pallas + 'focal_kernel.py:186',
              train_launches['det_loss'] + ckpt_launches['train']['det_loss']
-             + ddp_launches['det_loss'],
+             + ddp_launches['det_loss'] + pretrained['train']['det_loss'],
              dict(loss_row, launches_bwd=train_launches['det_loss_bwd']
                   + ckpt_launches['train']['det_loss_bwd']
-                  + ddp_launches['det_loss_bwd'])),
+                  + ddp_launches['det_loss_bwd']
+                  + pretrained['train']['det_loss_bwd'])),
     ]
     for name in OTHER_MODELS:
         o = other[name]
@@ -3157,6 +3431,9 @@ def main():
     ]
     print(f'e2e_ms_per_batch: {batch_ms}')
     print(f'train_ms_per_step: {step_ms}')
+    print(f'pretrained_yuv420_train_ms_per_step ({smi}): '
+          f'{pretrained["step_ms"]}, infer ms/batch {pretrained["batch_ms"]}, '
+          f'host converter ms an image {pretrained["convert"]}')
     print(f'rotated_e2e_ms_per_batch: {rot_batch_ms}')
     print(f'rotated_train_ms_per_step: {rot_step_ms}')
     print(f'multi_rotated_train_ms_per_step: {multi_rot_step_ms}')

@@ -1,9 +1,10 @@
 """Prefetching data iterator with bucketed static shapes.
 
 A copy of ``odtk_tpu/data/loader.py`` (``DataIterator`` and the
-rotated-box ``RotatedDataIterator``, the ``u8`` and ``f32`` feeds): the
-port imports nothing of ``odtk_tpu``, and ``tests/test_torch_data.py``
-and ``tests/test_torch_rotated.py`` hold the two equal. Host threads decode
+rotated-box ``RotatedDataIterator``, the ``u8``, ``yuv420`` and ``f32``
+feeds): the port imports nothing of ``odtk_tpu``, and
+``tests/test_torch_data.py``, ``tests/test_torch_rotated.py`` and
+``tests/test_torch_yuv420.py`` hold the two equal. Host threads decode
 and augment JPEGs while the device computes; batches are padded to
 multiples of the model stride. Sharding follows DistributedSampler
 semantics: a per-epoch permutation is split contiguously across
@@ -19,6 +20,62 @@ import numpy as np
 
 from .coco import (CocoDataset, RotatedCocoDataset, fit_resize_caps,
                    resize_dims, round_up)
+
+# JFIF/BT.601 full-range RGB<->YCbCr. _YUV_A/_YUV_B are the exact
+# inverse of the forward matrix so the device-side assembly
+# (ops/color.apply_color_affine_yuv) reverses the host conversion to
+# float precision: rgb_row = yuv_row @ _YUV_A + _YUV_B.
+_RGB2YUV = np.asarray([[0.299, -0.168736, 0.5],
+                       [0.587, -0.331264, -0.418688],
+                       [0.114, 0.5, -0.081312]], np.float64)
+_YUV_OFF = np.asarray([0.0, 128.0, 128.0], np.float64)
+_YUV_A = np.linalg.inv(_RGB2YUV)
+_YUV_B = -_YUV_OFF @ _YUV_A
+
+
+def rgb_to_yuv420(arr_u8):
+    """RGB u8 [h,w,3] -> (y u8 [h,w], cbcr u8 [ceil(h/2),ceil(w/2),2]).
+
+    The emission format of the 'yuv420' feed: a full-resolution luma
+    plane and chroma averaged over each 2x2 block (edge blocks: the mean
+    of the valid pixels), 1.5 B/px, the subsampling a 4:2:0 JPEG already
+    has. The native converter (``native/host_decode.cpp``
+    ``odtk_rgb_to_yuv420``) when it is built, else the numpy twin
+    (within 1 LSB of each other)."""
+    from . import native
+    out = native.rgb_to_yuv420(arr_u8)
+    if out is not None:
+        return out
+    return _rgb_to_yuv420_numpy(arr_u8)
+
+
+def _rgb_to_yuv420_numpy(arr_u8):
+    """Portable numpy twin of the native converter."""
+    h, w = arr_u8.shape[:2]
+    yuv = arr_u8.reshape(-1, 3).astype(np.float32) @ \
+        _RGB2YUV.astype(np.float32)
+    yuv = yuv.reshape(h, w, 3)
+    y = np.clip(yuv[:, :, 0] + 0.5, 0, 255).astype(np.uint8)
+    c = yuv[:, :, 1:]
+    ph, pw = (h + 1) // 2 * 2, (w + 1) // 2 * 2
+    if (ph, pw) != (h, w):
+        # edge-replicate so edge blocks average valid pixels only
+        c = np.pad(c, ((0, ph - h), (0, pw - w), (0, 0)), mode='edge')
+    c = c.reshape(ph // 2, 2, pw // 2, 2, 2).mean(axis=(1, 3))
+    c = np.clip(c + (128.0 + 0.5), 0, 255).astype(np.uint8)
+    return y, c
+
+
+def fold_yuv_affine(colors_rgb):
+    """Fold the YCbCr->RGB conversion into per-image color affines:
+    [B,3,4] RGB-space (t, off) -> [B,3,4] YUV-space, so the device
+    applies ONE affine to assembled YUV pixels."""
+    a = _YUV_A.astype(np.float32)
+    b = _YUV_B.astype(np.float32)
+    out = np.empty_like(colors_rgb)
+    out[:, :, :3] = a[None] @ colors_rgb[:, :, :3]
+    out[:, :, 3] = b @ colors_rgb[:, :, :3] + colors_rgb[:, :, 3]
+    return out
 
 
 def _pad_batch(images, stride, fixed_size=None, dtype=np.float32):
@@ -62,11 +119,18 @@ class DataIterator:
         # jitter+normalize matrix, colors[:, :, 3] its offset, sizes the
         # valid (h, w) extents for on-device pad masking. 4x fewer
         # host->device bytes than the f32 feed.
+        # emit='yuv420': (y u8 [B,H,W], cbcr u8 [B,H/2,W/2,2], targets,
+        # colors, sizes) — 8x fewer bytes; the YCbCr->RGB conversion is
+        # folded into each image's color affine (fold_yuv_affine) and
+        # chroma upsamples on the device. The canvas stride keeps H, W
+        # even.
         # Eval: 'u8' ships exact pixels (batches are (images u8, ids,
-        # ratios, sizes); infer.py normalizes on the device).
-        if emit not in ('u8', 'f32'):
-            raise ValueError(f'unknown feed {emit!r}: the port reads u8 '
-                             'and f32 (yuv420 is not ported)')
+        # ratios, sizes); infer.py normalizes on the device); 'yuv420'
+        # also subsamples chroma like the source JPEGs (batches are
+        # (y, cbcr, ids, ratios, sizes)).
+        if emit not in ('u8', 'yuv420', 'f32'):
+            raise ValueError(f'unknown feed {emit!r}: the feeds are u8, '
+                             'yuv420 and f32')
         self.emit = emit
         self.dataset = self.dataset_cls(
             path, resize=resize, max_size=max_size, stride=stride,
@@ -76,7 +140,7 @@ class DataIterator:
             augment_contrast=augment_contrast, augment_hue=augment_hue,
             augment_saturation=augment_saturation,
             absolute_angle=absolute_angle, fixed_size=fixed_size,
-            emit=self.emit)
+            emit='u8' if self.emit == 'yuv420' else self.emit)
         self.resize = resize
         self.max_size = max_size
         self.stride = stride
@@ -201,6 +265,15 @@ class DataIterator:
             if fast is None:
                 fast = self._collate(
                     [self._load_sample_safe(i) for i in batch_ids])
+            if self.emit == 'yuv420':
+                # eval yuv420: convert the u8 canvas rows to planes
+                data, ids, ratios, sizes = fast
+                yc = np.empty(data.shape[:3], np.uint8)
+                cc = np.empty((data.shape[0], data.shape[1] // 2,
+                               data.shape[2] // 2, 2), np.uint8)
+                for i, im in enumerate(data):
+                    yc[i], cc[i] = rgb_to_yuv420(im)
+                return yc, cc, ids, ratios, sizes
             return fast
         samples = [self._load_sample_safe(i) for i in batch_ids]
         return self._collate(samples)
@@ -276,7 +349,7 @@ class DataIterator:
         else:
             canvas_h = round_up(max(m[2] for m in metas), self.stride)
             canvas_w = round_up(max(m[3] for m in metas), self.stride)
-        u8 = self.emit == 'u8'
+        u8 = self.emit in ('u8', 'yuv420')
         canvas = np.empty((len(metas), canvas_h, canvas_w, 3),
                           np.uint8 if u8 else np.float32)
         ratios = np.empty(len(metas), np.float32)
@@ -303,7 +376,7 @@ class DataIterator:
         if self.training:
             images = [s[0] for s in samples]
             targets = [s[1] for s in samples]
-            if self.emit == 'u8':
+            if self.emit in ('u8', 'yuv420'):
                 colors = np.empty((len(samples), 3, 4), np.float32)
                 sizes = np.empty((len(samples), 2), np.float32)
                 for i, s in enumerate(samples):
@@ -312,16 +385,38 @@ class DataIterator:
                     sizes[i] = s[0].shape[:2]
                 tgts = _pad_targets(targets, self.dataset.box_width,
                                     self.max_det)
-                data = _pad_batch(images, self.stride, self.fixed_size,
-                                  dtype=np.uint8)
-                return data, tgts, colors, sizes
+                if self.emit == 'u8':
+                    data = _pad_batch(images, self.stride, self.fixed_size,
+                                      dtype=np.uint8)
+                    return data, tgts, colors, sizes
+                # yuv420: convert each augmented RGB image once, then
+                # place the planes on even-dim canvases
+                if self.fixed_size is not None:
+                    th, tw = self.fixed_size
+                    if th % 2 or tw % 2:
+                        raise ValueError(
+                            f'yuv420 feed needs an even canvas, got '
+                            f'fixed_size={self.fixed_size}; use the u8 '
+                            f'feed or an even size')
+                else:
+                    th = round_up(max(im.shape[0] for im in images),
+                                  self.stride)
+                    tw = round_up(max(im.shape[1] for im in images),
+                                  self.stride)
+                yc = np.zeros((len(images), th, tw), np.uint8)
+                cc = np.zeros((len(images), th // 2, tw // 2, 2), np.uint8)
+                for i, im in enumerate(images):
+                    y, c = rgb_to_yuv420(np.ascontiguousarray(im))
+                    yc[i, :y.shape[0], :y.shape[1]] = y
+                    cc[i, :c.shape[0], :c.shape[1]] = c
+                return yc, cc, tgts, fold_yuv_affine(colors), sizes
             data = _pad_batch(images, self.stride, self.fixed_size)
             return data, _pad_targets(targets, self.dataset.box_width,
                                       self.max_det)
         images = [s[0] for s in samples]
         ids = np.asarray([s[1] for s in samples], np.int64)
         ratios = np.asarray([s[2] for s in samples], np.float32)
-        if self.emit == 'u8':
+        if self.emit in ('u8', 'yuv420'):
             data = _pad_batch(images, self.stride, self.fixed_size,
                               dtype=np.uint8)
             sizes = np.asarray([im.shape[:2] for im in images], np.float32)

@@ -1,11 +1,11 @@
 """ctypes bridge to the native host decoder (``native/host_decode.cpp``).
 
-A copy of ``odtk_tpu/data/native.py`` without the yuv420 converter: JPEG
-decode + bilinear resize (+ fused ImageNet normalization) in C++, called
-from loader threads with the GIL released. The library is built on
-first use from the repository's ``native/`` sources into
-``odtk_tpu_torch/_build/native/``, under a name keyed by a hash of the
-sources. The build holds a file lock and writes into a per-process
+A copy of ``odtk_tpu/data/native.py``: JPEG decode + bilinear resize
+(+ fused ImageNet normalization) and the yuv420 feed's RGB -> YCbCr
+4:2:0 converter in C++, called from loader threads with the GIL
+released. The library is built on first use from the repository's
+``native/`` sources into ``odtk_tpu_torch/_build/native/``, under a name
+keyed by a hash of the sources. The build holds a file lock and writes into a per-process
 directory whose library is then renamed into place, so concurrent
 processes wait for one build instead of racing it. Without cmake, ninja
 or libjpeg the loader takes its PIL path.
@@ -99,6 +99,17 @@ def _load():
         lib.odtk_resize_u8.argtypes = [
             ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int, ctypes.c_int]
+        # guarded as in the JAX bridge: a library without the converter
+        # leaves the yuv420 feed on its numpy twin
+        try:
+            lib.odtk_rgb_to_yuv420.restype = ctypes.c_int
+            lib.odtk_rgb_to_yuv420.argtypes = [
+                ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_ubyte),
+                ctypes.POINTER(ctypes.c_ubyte)]
+            lib._has_yuv = True
+        except AttributeError:
+            lib._has_yuv = False
         _LIB = lib
         return _LIB
 
@@ -198,3 +209,22 @@ def resize_rgb(rgb_u8, out_h, out_w, normalize=True):
     if rc != 0:
         return None
     return out
+
+
+def rgb_to_yuv420(rgb_u8):
+    """RGB u8 [h,w,3] -> (y u8 [h,w], cbcr u8 [ceil/2, ceil/2, 2]) via
+    the native converter, or None (caller falls back to numpy)."""
+    lib = _load()
+    if lib is None or not getattr(lib, '_has_yuv', False):
+        return None
+    rgb_u8 = np.ascontiguousarray(rgb_u8, np.uint8)
+    h, w = rgb_u8.shape[:2]
+    y = np.empty((h, w), np.uint8)
+    c = np.empty(((h + 1) // 2, (w + 1) // 2, 2), np.uint8)
+    rc = lib.odtk_rgb_to_yuv420(
+        rgb_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), h, w,
+        y.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+        c.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)))
+    if rc != 0:
+        return None
+    return y, c

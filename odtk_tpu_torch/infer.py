@@ -6,12 +6,13 @@ group (``parallel``), on one device a process: each rank runs its shard
 of the images, the results are gathered after the last batch
 (``parallel.all_gather_host``) and rank 0 alone de-duplicates them by
 image id, writes the JSON and evaluates; the other ranks return no
-stats. Batches
-come from the port's copy of the ``DataIterator``: for a model on the u8
-eval feed, for an engine on the f32 feed (normalized on the host) at the
-engine's fixed input size, the contract its programs were exported with
-(``odtk_tpu/infer.py:36-56``). Each batch goes to
-the device from pinned host memory with a non-blocking copy, the whole
+stats. Batches come from the port's copy of the ``DataIterator``: for a
+model on the eval feed that ``ODTK_EVAL_FEED`` names (``u8`` by
+default, ``yuv420`` or ``f32``; another value gives ``u8``), for an
+engine on the f32 feed (normalized on the host) at the engine's fixed
+input size, the contract its programs were exported with
+(``odtk_tpu/infer.py:36-62``). Each batch's arrays go to the device
+from pinned host memory with a non-blocking copy, the whole
 normalize -> backbone -> heads -> decode -> NMS path runs there, and the
 results stay on the device until the gather after the last batch, so the
 host never waits for the device inside the loop. The detection JSON has
@@ -27,6 +28,7 @@ included, without a synchronization inside the loop.
 """
 
 import json
+import os
 import statistics
 import time
 
@@ -88,10 +90,14 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
     if verbose:
         print('Preparing dataset...')
     iterator_cls = RotatedDataIterator if rotated_bbox else DataIterator
+    eval_feed = 'f32'
+    if not engine:
+        eval_feed = os.environ.get('ODTK_EVAL_FEED', 'u8')
+        if eval_feed not in ('f32', 'u8', 'yuv420'):
+            eval_feed = 'u8'
     data_iterator = iterator_cls(
         path, resize, max_size, batch_size, model.stride, world, annotations,
-        training=False, rank=rank, fixed_size=fixed_size,
-        emit='f32' if engine else 'u8')
+        training=False, rank=rank, fixed_size=fixed_size, emit=eval_feed)
     if verbose:
         print(data_iterator)
 
@@ -120,21 +126,29 @@ def infer(model, path, detections_file, resize, max_size, batch_size,
         print('Running inference...')
 
     pin = device.type == 'cuda'
+
+    def to_device(array):
+        tensor = torch.from_numpy(array)
+        if pin:
+            tensor = tensor.pin_memory()
+        return tensor.to(device, non_blocking=True)
+
     results = []
     clock = BatchClock(device)
-    for data, ids, ratios, *sizes in data_iterator:
-        images = torch.from_numpy(data)
-        if pin:
-            images = images.pin_memory()
-        images = images.to(device, non_blocking=True)
-        if engine:
-            scores, boxes, classes = model(images)
+    for batch in data_iterator:
+        if eval_feed == 'yuv420':
+            y, cbcr, ids, ratios, sizes = batch
+            scores, boxes, classes = model.inference_fn_yuv(
+                to_device(y), to_device(cbcr), to_device(sizes))
+        elif eval_feed == 'u8':
+            data, ids, ratios, sizes = batch
+            scores, boxes, classes = model.inference_fn_u8(
+                to_device(data), to_device(sizes))
         else:
-            sizes = torch.from_numpy(sizes[0])
-            if pin:
-                sizes = sizes.pin_memory()
-            sizes = sizes.to(device, non_blocking=True)
-            scores, boxes, classes = model.inference_fn_u8(images, sizes)
+            data, ids, ratios = batch
+            images = to_device(data)
+            scores, boxes, classes = (model(images) if engine
+                                      else model.inference_fn(images))
         results.append([scores, boxes, classes, ids, ratios])
         clock.mark()
 

@@ -1,10 +1,12 @@
 """One backbone's weights from a torchvision-format state_dict file.
 
 Counterpart of ``odtk_tpu/io/torch_import.py:load_backbone_weights``
-(the model-zoo init of the original's ``backbones/resnet.py:20-22``,
-from a local file: no weights are downloaded). It takes what the JAX
-function takes and refuses what it refuses, with its message, which
-names the refused tensors by their JAX variables path.
+(the model-zoo init of the original's ``backbones/resnet.py:20-22``)
+from a file: ``--backbone-weights`` names one, and the default ImageNet
+init (``io/model_zoo.py``) finds one in the cache directories, or
+downloads it. It takes what the JAX function takes and refuses what it
+refuses, with its message, which names the refused tensors by their JAX
+variables path.
 """
 
 import torch

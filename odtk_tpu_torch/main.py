@@ -15,12 +15,16 @@ path with an engine extension (``.engine`` / ``.plan``) loads one.
 ``train`` takes every flag of the JAX CLI: ``--backbone-weights``
 (torchvision-format files for a fresh model's backbones), ``--logdir``
 (TensorBoard scalars), ``--profile-dir`` (a ``torch.profiler`` trace)
-and ``--post-metrics``. ``--feed yuv420`` is
-not ported; ``--with-dali`` and ``--with-apex`` are compatibility
-no-ops, as in the JAX CLI. So are ``--fused-stem / --no-fused-stem`` and
-``--wpack-layer1 / --no-wpack-layer1``: in the JAX CLI they pick between
-two TPU layouts of the same function, and here the ResNet stem always
-runs its CUDA kernel and layer1 as it is.
+and ``--post-metrics``. A fresh model's backbones start from their
+ImageNet weights (``io/model_zoo.py``) unless ``--backbone-weights``,
+``--fine-tune`` or ``--no-pretrained`` says otherwise, in the JAX CLI's
+order. ``--feed`` takes the JAX CLI's three feeds, with ``u8`` as the
+last fallback where the JAX CLI has ``yuv420``. ``--with-dali`` and
+``--with-apex`` are compatibility no-ops, as in the JAX CLI. So are
+``--fused-stem / --no-fused-stem`` and ``--wpack-layer1 /
+--no-wpack-layer1``: in the JAX CLI they pick between two TPU layouts of
+the same function, and here the ResNet stem always runs its CUDA kernel
+and layer1 as it is.
 
 ``train`` and ``infer`` run data parallel (``parallel/``) with
 ``--num-hosts`` n > 1 or with several cards: each host runs one process
@@ -139,11 +143,16 @@ def parse(args):
                     help='checkpoint to warm-start from (final class conv '
                          're-initialized)')
     pt.add_argument('--no-pretrained', action='store_true',
-                    help='(always so here: a fresh model starts from a '
-                         'random init; no weights are downloaded)')
-    pt.add_argument('--feed', choices=['u8', 'f32', 'yuv420'], default='u8',
-                    help='host->device training feed: u8 (default; raw '
-                         'pixels, colour affine on the device) or f32')
+                    help='skip the default ImageNet backbone init '
+                         '(fetch-with-cache; the reference loads model-zoo '
+                         'weights on every fresh model)')
+    pt.add_argument('--feed', choices=['yuv420', 'u8', 'f32'], default=None,
+                    help='host->device training feed: u8 (3 B/px, raw '
+                         'pixels, colour affine on the device), yuv420 '
+                         '(1.5 B/px, the JPEG\'s own chroma subsampling, '
+                         'lossy; the JAX CLI\'s default) or f32 (host-side '
+                         'normalize). ODTK_FEED env is the fallback, then '
+                         'u8.')
     pt.add_argument('--augment-rotate', action='store_true',
                     help='randomly rotate images by multiples of 90 degrees')
     pt.add_argument('--augment-free-rotate', metavar='value value',
@@ -191,7 +200,8 @@ def parse(args):
                     nargs='+', default=[],
                     help='torchvision-format state_dict file(s) to '
                          'initialize a fresh model\'s backbone(s) from, '
-                         'one per --backbone (no weights are downloaded)')
+                         'one per --backbone (in place of the default '
+                         'ImageNet init)')
     pt.add_argument('--logdir', metavar='logdir', type=str,
                     help='TensorBoard output directory')
     pt.add_argument('--post-metrics', metavar='url', type=str,
@@ -290,18 +300,14 @@ def parse(args):
     return parser.parse_args(args)
 
 
-def _refuse_unported(args):
-    if args.command != 'train':
-        return
-    if args.feed == 'yuv420':
-        raise NotImplementedError(
-            '--feed yuv420 is not ported (ROADMAP "Do not port"); use u8')
-
-
 def load_model(args):
     """(Model, resume state): a fresh model for ``train`` without a
     checkpoint (or with ``--override``), an ``Engine`` for ``infer`` on an
-    engine file, else the checkpoint's."""
+    engine file, else the checkpoint's. A fresh model is filled on the
+    CPU: from ``--backbone-weights`` where given, else, without
+    ``--fine-tune`` and ``--no-pretrained``, from the ImageNet files
+    (``io/model_zoo.init_pretrained``), as ``odtk_tpu/main.py:322-332``
+    does."""
     from .model import Model
 
     ext = os.path.splitext(args.model)[1]
@@ -324,6 +330,12 @@ def load_model(args):
             for name, path in zip(args.backbone, args.backbone_weights):
                 print('Loading {} weights from {}...'.format(name, path))
                 load_backbone_weights(model, name, path)
+        elif args.fine_tune is None and not args.no_pretrained:
+            # the original's default: every fresh backbone gets ImageNet
+            # weights; warns loudly and trains from scratch when they
+            # cannot be had
+            from .io.model_zoo import init_pretrained
+            init_pretrained(model)
         state = {}
     else:
         if ext not in CHECKPOINT_EXTS:
@@ -497,7 +509,6 @@ def worker(local_rank, args, local):
 def main(args=None):
     'Entry point for the odtk-tpu-torch command'
     args = parse(sys.argv[1:] if args is None else args)
-    _refuse_unported(args)
     local = local_processes(args)
     if args.command == 'export' or args.num_hosts * local == 1:
         model, state = load_model(args)

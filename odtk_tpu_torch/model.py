@@ -29,8 +29,8 @@ from torch import nn
 
 from . import backbones as backbones_mod
 from . import parallel
-from .ops import (decode, decode_fused, eval_normalize_u8, generate_anchors,
-                  generate_anchors_rotated, nms, nms_rotated,
+from .ops import (decode, decode_fused, eval_normalize_u8, eval_normalize_yuv,
+                  generate_anchors, generate_anchors_rotated, nms, nms_rotated,
                   snap_to_anchors, snap_to_anchors_rotated_levels)
 from .ops.kernels.loss import detection_loss_sums_levels
 
@@ -332,6 +332,15 @@ class Model:
         device."""
         images_u8 = images_u8.to(self.device)
         return self.inference_fn(eval_normalize_u8(images_u8, sizes))
+
+    @torch.inference_mode()
+    def inference_fn_yuv(self, y_u8, cbcr_u8, sizes):
+        """``inference_fn`` on the yuv420 eval feed: the planes y_u8
+        [B, H, W] and cbcr_u8 [B, H/2, W/2, 2] and valid (h, w) ``sizes``
+        [B, 2]; the assembly and the normalization (``ops/color.
+        eval_normalize_yuv``) run on the device."""
+        y_u8, cbcr_u8 = y_u8.to(self.device), cbcr_u8.to(self.device)
+        return self.inference_fn(eval_normalize_yuv(y_u8, cbcr_u8, sizes))
 
     def save(self, state):
         from .io import checkpoint

@@ -7,7 +7,8 @@ from .assign import (snap_to_anchors, snap_to_anchors_rotated,
                      snap_to_anchors_rotated_levels)
 from .boxes import (box2delta, box2delta_rotated, delta2box,
                     delta2box_rotated, order_points, rotate_boxes)
-from .color import apply_color_affine, eval_normalize_u8
+from .color import (apply_color_affine, apply_color_affine_yuv,
+                    eval_normalize_u8, eval_normalize_yuv)
 from .decode import decode, decode_fused
 from .losses import focal_loss, smooth_l1_loss
 from .nms import nms, nms_rotated
@@ -18,5 +19,6 @@ __all__ = ['generate_anchors', 'generate_anchors_rotated',
            'snap_to_anchors_rotated_levels', 'box2delta',
            'box2delta_rotated', 'delta2box', 'delta2box_rotated',
            'order_points', 'rotate_boxes', 'apply_color_affine',
-           'eval_normalize_u8', 'decode', 'decode_fused', 'focal_loss',
+           'apply_color_affine_yuv', 'eval_normalize_u8',
+           'eval_normalize_yuv', 'decode', 'decode_fused', 'focal_loss',
            'smooth_l1_loss', 'nms', 'nms_rotated']

@@ -1,9 +1,11 @@
-"""Colour math of the u8 feeds, on the device.
+"""Colour math of the u8 and yuv420 feeds, on the device.
 
-Counterpart of ``odtk_tpu/ops/color.py:apply_color_affine`` (train) and
-``eval_normalize_u8`` (eval): the loader ships raw u8 pixels (a quarter
-of the f32 bytes over PCIe) and the per-image colour affine, the clip
-and the pad masking run as tensor ops next to the model.
+Counterpart of ``odtk_tpu/ops/color.py``: ``apply_color_affine`` and
+``apply_color_affine_yuv`` (train), ``eval_normalize_u8`` and
+``eval_normalize_yuv`` (eval). The loader ships raw u8 pixels (a quarter
+of the f32 bytes over PCIe) or YCbCr 4:2:0 planes (an eighth), and the
+chroma upsample, the per-image colour affine, the clip and the pad
+masking run as tensor ops next to the model, in fp32.
 """
 
 import numpy as np
@@ -34,6 +36,32 @@ def apply_color_affine(images_u8, colors, sizes):
                                          float(_CLIP_HI[c]))
                    for c in range(3)], dim=-1)
     return _mask_valid(y, images_u8.shape[1:3], sizes)
+
+
+def apply_color_affine_yuv(y_u8, cbcr_u8, colors, sizes):
+    """The yuv420 train feed: y_u8 [B, H, W] and cbcr_u8
+    [B, H/2, W/2, 2] assembled by a nearest 2x upsample of the chroma,
+    then ``apply_color_affine``, whose ``colors`` the loader already
+    folded through YCbCr -> RGB (``data/loader.fold_yuv_affine``)."""
+    c = cbcr_u8.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    yuv = torch.cat([y_u8[..., None], c], dim=-1)
+    return apply_color_affine(yuv, colors, sizes)
+
+
+def eval_normalize_yuv(y_u8, cbcr_u8, sizes):
+    """The yuv420 eval feed: the planes assembled as in
+    ``apply_color_affine_yuv`` under one constant affine, the ImageNet
+    normalization folded through YCbCr -> RGB; NHWC fp32 with the canvas
+    padding zeroed. Chroma is 2x2-averaged, like the JPEG's own, so this
+    is slightly lossy against ``eval_normalize_u8``."""
+    from ..data.loader import fold_yuv_affine
+
+    t = np.diag(1.0 / (255.0 * IMAGENET_STD)).astype(np.float32)
+    off = (-IMAGENET_MEAN / IMAGENET_STD).astype(np.float32)
+    colors = torch.from_numpy(fold_yuv_affine(
+        np.concatenate([t, off[:, None]], axis=1)[None])).to(y_u8.device)
+    return apply_color_affine_yuv(
+        y_u8, cbcr_u8, colors.expand(y_u8.shape[0], 3, 4), sizes)
 
 
 def eval_normalize_u8(images_u8, sizes):

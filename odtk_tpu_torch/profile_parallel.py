@@ -205,7 +205,7 @@ def main(argv=None):
         out = _cli(['train', 'r50.pth', '--classes', '80', '--batch',
                     str(8 * world), '--iters', str(STEPS), '--warmup', '10',
                     '--milestones', str(STEPS), '--lr', '0.001', '--jitter',
-                    '800', '800'] + base, root)
+                    '800', '800', '--no-pretrained'] + base, root)
         (line,) = [ln for ln in out.splitlines()
                    if ln.startswith(f'[{STEPS}/{STEPS}]')]
         losses = [float(v) for v in re.findall(r'loss: ([^,]+),', line)]

@@ -36,9 +36,10 @@ group (``parallel``), on one device a process:
   the JAX trainer's optax state in a ``.ckpt`` (``io/opt_state.py``,
   with the count of applied updates); the momentum is restored from
   either, and from the optax bytes of a JAX-written ``.pth``.
-- Batches come from the u8 feed by default: a feeder thread pins each
-  batch and copies it to the device on a side stream, one batch ahead
-  of the step (``_device_feed``).
+- Batches come from the u8 feed by default (``ODTK_FEED`` names another:
+  ``yuv420``, the JAX trainer's default, or ``f32``): a feeder thread
+  pins each batch's arrays and copies them to the device on a side
+  stream, one batch ahead of the step (``_device_feed``).
 """
 
 import math
@@ -53,7 +54,7 @@ from . import parallel
 from .data import DataIterator, RotatedDataIterator
 from .infer import BatchClock, infer
 from .io import checkpoint, opt_state
-from .ops import apply_color_affine
+from .ops import apply_color_affine, apply_color_affine_yuv
 from .utils import Profiler, ignore_sigint, post_metrics
 
 VALIDATION_TAGS = [
@@ -100,7 +101,8 @@ def make_optimizer(params, lr, weight_decay=1e-4, momentum=0.9):
 
 def make_train_step(model, optimizer, clip_grads=0.0, feed='u8'):
     """The train step: ``step(lr, images, targets)`` for the f32 feed,
-    ``step(lr, images_u8, targets, colors, sizes)`` for the u8 feed.
+    ``step(lr, images_u8, targets, colors, sizes)`` for the u8 feed,
+    ``step(lr, y, cbcr, targets, colors, sizes)`` for the yuv420 feed.
     Returns (cls_loss, box_loss) as device scalars; the host does not
     wait for the device. In a process group (made before this is
     called) the gradients and the losses are summed over the processes
@@ -131,14 +133,20 @@ def make_train_step(model, optimizer, clip_grads=0.0, feed='u8'):
 
     if feed == 'f32':
         return update
-    if feed != 'u8':
+    if feed == 'u8':
+        def step_u8(lr, images_u8, targets, colors, sizes):
+            return update(lr, apply_color_affine(images_u8, colors, sizes),
+                          targets)
+
+        return step_u8
+    if feed != 'yuv420':
         raise ValueError(f'unknown feed {feed!r}')
 
-    def step_u8(lr, images_u8, targets, colors, sizes):
-        return update(lr, apply_color_affine(images_u8, colors, sizes),
+    def step_yuv(lr, y, cbcr, targets, colors, sizes):
+        return update(lr, apply_color_affine_yuv(y, cbcr, colors, sizes),
                       targets)
 
-    return step_u8
+    return step_yuv
 
 
 def _device_feed(data_iterator, device, prefetch=2):
@@ -232,7 +240,7 @@ def train(model, state, path, annotations, val_path, val_annotations,
           metrics_url=None, logdir=None, rotate_augment=False,
           crop_augment=False, augment_brightness=0.0, augment_contrast=0.0,
           augment_hue=0.0, augment_saturation=0.0, regularization_l2=0.0001,
-          max_det=128, sync_every=8, clip_grads=0.0, feed='u8',
+          max_det=128, sync_every=8, clip_grads=0.0, feed=None,
           device='cuda', rotated_bbox=False, absolute_angle=False,
           profile_dir=None):
     """Train ``model`` for ``iterations`` steps on ``device``, in a
@@ -243,14 +251,17 @@ def train(model, state, path, annotations, val_path, val_annotations,
     losses of every step, and the ms between the ends of consecutive
     steps on the device's clock (host clock on the CPU; ``BatchClock``
     of ``infer.py``), which takes no synchronization inside the loop.
-    With ``profile_dir`` it also holds ``trace``, the trace's path."""
+    With ``profile_dir`` it also holds ``trace``, the trace's path.
+    ``feed`` (u8, yuv420 or f32) falls back to ``ODTK_FEED``, then to u8,
+    where the JAX trainer falls back to yuv420: that feed is lossy after
+    the resize, and it exists for a thin host link."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device cuda requested but no CUDA device is '
                            'available (pass --device cpu to run on the CPU)')
-    if feed not in ('u8', 'f32'):
-        raise ValueError(f'unknown feed {feed!r} (the port reads u8 and f32; '
-                         'yuv420 is not ported)')
+    feed = feed or os.environ.get('ODTK_FEED', 'u8')
+    if feed not in ('yuv420', 'u8', 'f32'):
+        raise ValueError(f'unknown feed mode {feed!r}')
 
     rank, world = parallel.world_info()
     # the clean startup error of a batch that does not divide
@@ -357,7 +368,11 @@ def train(model, state, path, annotations, val_path, val_annotations,
             if iteration == profile_start:
                 trace = _Trace(profile_dir, device, iteration)
             profiler.start('fw')
-            if feed == 'u8':
+            if feed == 'yuv420':
+                images, cbcr, targets, colors, sizes = arrays
+                cls_loss, box_loss = train_step(schedule(iteration), images,
+                                                cbcr, targets, colors, sizes)
+            elif feed == 'u8':
                 images, targets, colors, sizes = arrays
                 cls_loss, box_loss = train_step(schedule(iteration), images,
                                                 targets, colors, sizes)

@@ -75,7 +75,7 @@ def test_cli_train_infer_export_on_the_cpu(backbone, tmp_path):
                        '3', '--iters', '1', '--warmup', '1', '--milestones',
                        '1', '--batch', '2', '--resize', '96', '--max-size',
                        '128', '--jitter', '96', '96', '--full-precision',
-                       *common])
+                       '--no-pretrained', *common])
     assert len(result['losses']) == 1
     assert np.isfinite(result['losses'][0][1:]).all()
     assert Model.load(ckpt)[0].backbones == [backbone]

@@ -349,7 +349,7 @@ def test_cli_train_resume_infer_ckpt(tmp_path):
               '--resize', '96', '--max-size', '128', '--device', 'cpu']
     train = ['train', ckpt, '--backbone', 'ResNet18FPN', '--classes', '3',
              '--jitter', '96', '112', '--warmup', '1', '--milestones', '1',
-             '--full-precision'] + common
+             '--full-precision', '--no-pretrained'] + common
     random.seed(0)
     first = cli.main(train + ['--iters', '2'])
     assert [it for it, _, _ in first['losses']] == [0, 1]

@@ -135,7 +135,7 @@ def test_cli_train_stem_flags_keep_the_kernel(data, tmp_path, monkeypatch,
             str(CLASSES), '--batch', '2', '--resize', '64', '--max-size',
             '96', '--jitter', '64', '64', '--iters', '1', '--warmup', '1',
             '--milestones', '100', '--full-precision', '--override',
-            '--device', 'cpu'] + flags)
+            '--no-pretrained', '--device', 'cpu'] + flags)
         assert len(out['losses']) == 1 and np.isfinite(out['losses']).all()
         assert {k: calls[k] - before[k] for k in calls} == {
             'bn_relu_pool': 0, 'bn_relu_pool_train': 1}, flags

@@ -99,10 +99,14 @@ def test_targets_padded_and_cut_at_max_det(dataset, decode_route):
 
 
 def test_feed_names_checked(dataset):
+    """u8, yuv420 and f32 are the feeds; another name raises."""
     img_dir, ann = dataset
-    with pytest.raises(ValueError, match='yuv420'):
+    for emit in ('u8', 'yuv420', 'f32'):
+        assert DataIterator(img_dir, 96, 128, 2, 32, 1, ann, training=True,
+                            emit=emit).emit == emit
+    with pytest.raises(ValueError, match="unknown feed 'yuv444'"):
         DataIterator(img_dir, 96, 128, 2, 32, 1, ann, training=True,
-                     emit='yuv420')
+                     emit='yuv444')
 
 
 def test_evaluator_equal_on_synthetic_detections(dataset):

@@ -1191,3 +1191,69 @@ def test_conv_w8a8_launch_error_raises(cuda_device):
         kconv.conv_w8a8(small[0].cpu(), *small[1:], torch.float32)
     with pytest.raises(ValueError):
         kconv.conv_w8a8(small[0].transpose(2, 3), *small[1:], torch.float32)
+
+
+# ------------------------------------------------------- yuv420 train step
+@pytest.mark.cuda
+def test_yuv420_train_step_on_the_card(cuda_device):
+    """One yuv420 SGD step of ResNet18FPN on the card beside the same
+    step on the CPU (fp32, TF32 off, deterministic cuDNN, the same seeded
+    init and planes): the stem's argmax forward and backward and the
+    loss's forward and backward kernels launch once each; the image the
+    planes assemble to equals the CPU's within 1e-6; the losses agree
+    at rtol 1e-4; the parameters stay finite and conv1 moves."""
+    from odtk_tpu_torch import train as train_mod
+    from odtk_tpu_torch.data.loader import fold_yuv_affine
+    from odtk_tpu_torch.model import Model
+    from odtk_tpu_torch.ops import apply_color_affine_yuv
+    from odtk_tpu_torch.ops.color import IMAGENET_MEAN, IMAGENET_STD
+
+    rng = np.random.RandomState(5)
+    b, h, w = 2, 128, 160
+    y = rng.randint(0, 256, (b, h, w)).astype(np.uint8)
+    cbcr = rng.randint(0, 256, (b, h // 2, w // 2, 2)).astype(np.uint8)
+    normalize = np.concatenate(
+        [np.diag(1.0 / (255.0 * IMAGENET_STD)),
+         (-IMAGENET_MEAN / IMAGENET_STD)[:, None]], axis=1)
+    colors = fold_yuv_affine(np.repeat(normalize[None], b, 0).astype(
+        np.float32) * np.float32(1.01))
+    sizes = np.asarray([[128, 160], [100, 120]], np.float32)
+    targets = np.full((b, 8, 5), -1, np.float32)
+    targets[0, :2] = [[10, 12, 60, 50, 1], [70, 40, 48, 64, 0]]
+    targets[1, :1] = [[30, 20, 40, 70, 2]]
+    counted = (kstem.bn_relu_pool_idx, kstem.bn_relu_pool_bwd,
+               kloss.detection_loss_fwd_kernel,
+               kloss.detection_loss_bwd_kernel)
+    out = {}
+    for device in (torch.device('cpu'), cuda_device):
+        model = Model('ResNet18FPN', classes=3).initialize(0)
+        model.to(device)
+        model.set_dtype(torch.float32)
+        opt = train_mod.make_optimizer(model.module.parameters(), 0.01)
+        step = train_mod.make_train_step(model, opt, feed='yuv420')
+        args = [torch.from_numpy(a).to(device)
+                for a in (y, cbcr, targets, colors, sizes)]
+        before = [k.launches for k in counted]
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        allow_tf32=False):
+            losses = step(0.01, *args)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        out[device.type] = dict(
+            launches=[k.launches - n for k, n in zip(counted, before)],
+            losses=[float(t) for t in losses],
+            image=apply_color_affine_yuv(args[0], args[1], args[3],
+                                         args[4]).cpu(),
+            params={k: p.detach().cpu() for k, p in
+                    model.module.named_parameters()})
+    cpu, card = out['cpu'], out['cuda']
+    assert cpu['launches'] == [0, 0, 0, 0]
+    assert card['launches'] == [1, 1, 1, 1]
+    torch.testing.assert_close(card['image'], cpu['image'], rtol=0,
+                               atol=1e-6)
+    assert all(np.isfinite(card['losses'])) and card['losses'][0] > 0
+    np.testing.assert_allclose(card['losses'], cpu['losses'], rtol=1e-4)
+    assert all(torch.isfinite(p).all() for p in card['params'].values())
+    init = Model('ResNet18FPN', classes=3).initialize(0).module.state_dict()
+    conv1 = 'backbones.ResNet18FPN.features.conv1.weight'
+    assert not torch.equal(card['params'][conv1], init[conv1])

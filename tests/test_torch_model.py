@@ -185,6 +185,7 @@ def test_port_never_imports_jax():
             'import odtk_tpu_torch.backbones.resnet\n'
             'import odtk_tpu_torch.io.checkpoint\n'
             'import odtk_tpu_torch.io.jax_bridge\n'
+            'import odtk_tpu_torch.io.model_zoo\n'
             'import odtk_tpu_torch.profile_infer\n'
             'import odtk_tpu_torch.profile_engine\n'
             'import odtk_tpu_torch.profile_stem\n'

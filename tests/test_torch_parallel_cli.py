@@ -125,7 +125,8 @@ def test_divergence_stops_every_rank(tmp_path, data):
         'train', f'model{i}.pth', '--images', img, '--annotations', ann,
         '--backbone', 'ResNet18FPN', '--classes', '3', '--iters', '3',
         '--warmup', '0', '--milestones', '3', '--batch', '2', '--jitter',
-        '96', '96', '--lr', '1e12'] + SIZES, str(tmp_path))
+        '96', '96', '--lr', '1e12', '--no-pretrained'] + SIZES,
+        str(tmp_path))
     for rc, _, err in runs:
         assert rc != 0
         assert re.search(r'Loss is diverging! \(iteration \d', err), \

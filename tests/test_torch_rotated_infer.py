@@ -254,8 +254,8 @@ common = ['--images', img, '--annotations', ann, '--batch', '2',
           '--full-precision']
 train = cli.main(['train', {ckpt!r}, '--backbone', 'ResNet18FPN',
                   '--classes', '3', '--jitter', '96', '112', '--iters', '2',
-                  '--warmup', '1', '--milestones', '1', '--rotated-bbox']
-                 + common)
+                  '--warmup', '1', '--milestones', '1', '--rotated-bbox',
+                  '--no-pretrained'] + common)
 result = cli.main(['infer', {ckpt!r}, '--output', {det!r},
                    '--threshold', '0.001', '--rotated-bbox'] + common)
 mods = {{m.split('.')[0] for m in set(sys.modules) - before}}
@@ -301,19 +301,21 @@ def test_cli_rotated_train_then_infer(tmp_path):
 def test_unported_flag_names_its_roadmap_item():
     """--num-hosts > 1, once unported, now passes the parse and the
     startup checks (data parallel, ROADMAP Queue 1 item 7, done); the
-    train flags of the JAX CLI, the rotated ones among them, parse and
-    do not raise either."""
+    train flags of the JAX CLI, the rotated ones among them and the
+    once refused ``--feed yuv420``, parse and pass the startup checks
+    too."""
     args = cli.parse(['--num-hosts', '2', 'train', 'm.pth',
                       '--annotations', 'a.json'])
-    cli._refuse_unported(args)
     assert args.num_hosts == 2 and cli.local_processes(args) >= 1
     args = cli.parse(['train', 'm.ckpt', '--annotations', 'a.json',
                       '--rotated-bbox', '--absolute-angle',
                       '--anchor-angles', '-0.5', '0', '0.5',
                       '--logdir', 'logs', '--profile-dir', 'trace',
                       '--post-metrics', 'http://127.0.0.1:1/',
-                      '--backbone-weights', 'w.pth'])
-    cli._refuse_unported(args)
+                      '--backbone-weights', 'w.pth', '--feed', 'yuv420',
+                      '--no-pretrained'])
+    assert cli.local_processes(args) >= 1
     assert args.rotated_bbox and args.anchor_angles == [-0.5, 0.0, 0.5]
     assert (args.logdir, args.profile_dir, args.backbone_weights) == (
         'logs', 'trace', ['w.pth'])
+    assert args.feed == 'yuv420' and args.no_pretrained

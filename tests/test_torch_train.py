@@ -428,8 +428,8 @@ common = ['--images', img, '--annotations', ann, '--batch', '2',
           '--resize', '96', '--max-size', '128', '--device', 'cpu']
 train = cli.main(['train', {ckpt!r}, '--backbone', 'ResNet18FPN',
                   '--classes', '3', '--jitter', '96', '112', '--iters', '2',
-                  '--warmup', '1', '--milestones', '1', '--full-precision']
-                 + common)
+                  '--warmup', '1', '--milestones', '1', '--full-precision',
+                  '--no-pretrained'] + common)
 result = cli.main(['infer', {ckpt!r}, '--output', {det!r},
                    '--threshold', '0.001'] + common)
 mods = {{m.split('.')[0] for m in set(sys.modules) - before}}

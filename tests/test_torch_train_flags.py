@@ -271,7 +271,7 @@ def _cli_args(tmp_path, ckpt, iters):
             '--backbone', 'ResNet18FPN', '--classes', '3', '--batch', '2',
             '--resize', '64', '--max-size', '96', '--jitter', '64', '64',
             '--iters', str(iters), '--warmup', '1', '--milestones', '100',
-            '--full-precision', '--device', 'cpu']
+            '--full-precision', '--device', 'cpu', '--no-pretrained']
 
 
 def test_cli_profile_dir_logdir_post_metrics(tmp_path, collector):

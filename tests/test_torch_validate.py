@@ -290,7 +290,7 @@ def test_training_record_of_a_cli_run(tmp_path, monkeypatch, capsys):
                     '--batch', '2', '--resize', '64', '--max-size', '96',
                     '--jitter', '64', '64', '--iters', '2', '--warmup', '1',
                     '--milestones', '100', '--full-precision', '--override',
-                    '--device', 'cpu'])
+                    '--no-pretrained', '--device', 'cpu'])
     got = port.training(capsys.readouterr().out, path)
     assert got['iterations'] == got['applied'] == 2
     mean = np.mean([(c, b) for _, c, b in out['losses']], axis=0)
