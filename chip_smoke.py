@@ -31,7 +31,10 @@ it, and prints each phase's wall seconds:
      the forward with argmax bit-equal to the primal kernel and to plain,
      its idx equal to max_pool2d's indices mapped to codes, and the
      routing backward equal to the plain version's autograd; the same on
-     the NaN-planted case (code 9 wherever the output is NaN);
+     the NaN-planted case (code 9 wherever the output is NaN); the
+     backward also at its edge shapes (odd sizes, a pooled width not a
+     multiple of 4, groups straddling warps), NaN-planted, and on a
+     cotangent and codes off the 16-byte grid;
   4. train: ``odtk-tpu-torch train`` for 20 steps at batch 8 (lr 0.001,
      warmup 10), from a seeded random init; the losses finite, each
      training kernel launched the expected number of times (the loss's
@@ -453,7 +456,53 @@ def stem_train_phase(device):
                   f'{list(TRAIN_STEM_SHAPE)}: equal, kernel '
                   f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, '
                   f'bound {row["bound"][0]:.4f} ms', flush=True)
+        stem_bwd_edges(device, dtype)
     return fwd, bwd
+
+
+# the backward's edges: odd Hc and Wc with one group and with wp 10, not a
+# multiple of 4 (scalar loads and stores); 73 groups a plane (groups
+# straddle warps) and odd Hc (the last pooled row writes one conv row);
+# even sizes at 16-byte rows
+STEM_BWD_EDGES = [(1, 3, 13, 9), (2, 5, 17, 19), (1, 64, 449, 577),
+                  (2, 4, 40, 64)]
+
+
+def _off_grid(t):
+    """A contiguous copy of t one element past an allocation's start."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+def stem_bwd_edges(device, dtype):
+    """Row 4 at STEM_BWD_EDGES, plain and NaN-planted: the backward
+    through autograd equal to the plain version's autograd, and again on
+    a cotangent and codes one element off the 16-byte grid."""
+    from odtk_tpu_torch.ops.kernels import stem
+
+    for shape in STEM_BWD_EDGES:
+        case = _stem_inputs(shape, dtype, device, 5)
+        for label, (y, scale, shift) in (('', case),
+                                         (' NaN', _with_nan(*case, 6))):
+            yr = y.clone().requires_grad_(True)
+            out = stem.bn_relu_pool_train(yr, scale, shift)
+            g = torch.randn(out.shape,
+                            generator=torch.Generator().manual_seed(7))
+            g = g.to(device, dtype)
+            dy, = torch.autograd.grad(out, yr, g)
+            want, = torch.autograd.grad(
+                stem.bn_relu_pool_plain(yr, scale, shift), yr, g)
+            _, idx = stem.bn_relu_pool_idx(y, scale, shift)
+            off = stem.bn_relu_pool_bwd(_off_grid(idx), _off_grid(g), scale,
+                                        shape[2:])
+            if not (torch.equal(dy, want) and torch.equal(off, want)):
+                raise AssertionError(
+                    f'stem backward != plain autograd{label} in {dtype} at '
+                    f'{list(shape)}: max abs diff {_max_abs([dy], [want])}, '
+                    f'off the 16-byte grid {_max_abs([off], [want])}')
+    print(f'stem-train backward edges {str(dtype)[6:]}: '
+          f'{[list(s) for s in STEM_BWD_EDGES]}, with NaN and off the 16-byte '
+          'grid: equal to plain autograd', flush=True)
 
 
 def stem_nan_check(y, scale, shift, dtype):

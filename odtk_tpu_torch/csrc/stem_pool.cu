@@ -55,10 +55,43 @@
 //   - The 4 outputs of a row go out as one 8-byte (bf16) or 16-byte (fp32)
 //     store and the 4 codes as one 32-bit store where the pooled width is a
 //     multiple of 4; scalar stores otherwise.
-// The backward is a gather over the conv map (one thread per 2x2 quad,
-// reading the four windows that hold it), so every element is written once,
-// with no atomics and no data-dependent loads; its bytes are the dy write
-// plus the idx and g reads.
+// The backward is a gather over the conv map: each conv element sums the
+// cotangents of the windows whose code points at it, times the scale, and
+// is written once, with no atomics. Bound on the card: bytes, the dy write
+// plus the codes and cotangent reads; at the train batch's conv1, bf16
+// [8, 64, 448, 576], 264 + 33 + 66 MB, 0.1085 ms at 3.35 TB/s (fp32 694 MB,
+// 0.2071 ms). Its first form ran a thread per 2x2 quad of conv elements and
+// took ~0.212 ms bf16 whether dy was fresh, reused, or written right after
+// the forward, and inside a train step, where the cotangent arrives NCHW
+// contiguous (no copy before it): each warp store of a conv row covered
+// 128 bytes at half density in 2-byte stores, each window's code and
+// cotangent were read by up to four threads in scalar loads, and a quarter
+// of the threads idled at a pooled width of 288. The design:
+//   - A thread takes the forward's column groups: 4 pooled columns (conv
+//     columns 8g .. 8g+7) of one pooled row p of one plane. It loads a
+//     window row's 4 codes as one 32-bit word and its 4 cotangents as one
+//     8- (bf16) or 16-byte (fp32) word, scalar loads where the pooled width
+//     is not a multiple of 4 or a base is off the grid; window 4g+4, which
+//     conv column 8g+7 also lies in, comes from the next lane by a shuffle
+//     (a warp's last lane loads it itself).
+//   - Conv row 2p lies only in window row p and 2p+1 in rows p and p+1, so
+//     the thread loads window rows p and p+1 and writes conv rows 2p and
+//     2p+1. Row p+1 is loaded again by row p+1's thread, an L2 hit. Walks
+//     down strips of 2-16 pooled rows, carrying row p+1 as the next p,
+//     measured slower: the compiler hoists a strip's loads, which raises
+//     the registers (32 at 1 row, 62 at 4, 80 at 8 in bf16) and cuts the
+//     warps an SM keeps.
+//   - A conv row's 8 columns go out as one 16-byte store in bf16, so a
+//     warp writes 512 contiguous bytes a row, scalar stores where the row
+//     or the base is not 16-byte aligned or the group passes the row's
+//     end. In fp32 a lane's 32 bytes as two direct stores leave each store
+//     instruction's 1 KB span half written, and the kernel ran barely
+//     under the first form (~0.267 ms against ~0.270); there the lanes
+//     stage their rows in shared memory and each run of lanes that write
+//     one row contiguously goes out as one TMA bulk copy (~0.236 ms).
+//     Staged bf16 measured 22% slower than direct.
+// Measured so: ~0.128 ms bf16 (85% of the bound) and ~0.236 ms fp32
+// (88%), where writing dy alone (dy.zero_()) takes ~0.081 and ~0.161.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,20 +116,11 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Launch shape of the backward: one thread per 2x2 quad of conv elements,
-// x over the pooled columns, y over the pooled rows, z over the B*C planes,
-// so a thread's coordinates come from its block and thread indices without
-// a 64-bit division.
+// Both directions run a thread per (plane, strip, column group), threads
+// in that order from the fastest: group, strip, plane; blocks of kThreads.
+// A forward strip is kStripRows pooled rows, a backward strip one.
 constexpr int kThreads = 128;
-
-__host__ __device__ inline unsigned col_blocks(int width) {
-  return (unsigned)((width + kThreads - 1) / kThreads);
-}
-
-// The forward: a thread per (plane, strip, column group), threads in that
-// order from the fastest: group, strip, plane.
-constexpr int kFwdThreads = 128;
-constexpr int kStripRows = 8;    // pooled rows of a strip
+constexpr int kStripRows = 8;    // pooled rows of a forward strip
 constexpr int kGroupCols = 4;    // pooled columns of a group
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -184,7 +208,7 @@ __device__ __forceinline__ void row_max(const Chunk<T>& c, bool live,
 // positions are never candidates. vec_in: y and its rows are 16-byte
 // aligned; vec_out: out, idx and the pooled rows allow the 4-wide stores.
 template <typename T, bool kIdx>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
     stem_pool_fwd_kernel(const T* __restrict__ y,
                          const float* __restrict__ scale,
                          const float* __restrict__ shift, T* __restrict__ out,
@@ -195,7 +219,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   // reduced and the next kSlots - 1 (16-byte rows, bf16, need the deeper
   // ring to keep as many bytes in flight as fp32's two words)
   constexpr int kSlots = sizeof(T) == 2 ? 3 : 2;
-  const unsigned tid = blockIdx.x * kFwdThreads + threadIdx.x;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
   const unsigned g = tid % groups;
   const unsigned rest = tid / groups;
   const unsigned t = rest / strips;     // plane b * C + c
@@ -277,107 +301,285 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-// Backward: a gather, one thread per 2x2 quad of conv elements, rows
-// (2p, 2p+1) x cols (2q, 2q+1). Those four elements lie only in the windows
-// (p, q), (p, q+1), (p+1, q) and (p+1, q+1), so the thread reads the four
-// codes and cotangents once, unconditionally, and writes four outputs:
-//   dy[b, c, i, j] = scale[c] * sum of g[b, c, p', q'] over the windows
-//                    (p', q') that hold (i, j) and whose idx points at it,
-// summed in fp32 in the order of ascending p', then q' (the order of
-// max_pool2d's own backward), then cast to y's dtype. No atomics.
+// One window row of a group as loaded: the codes of windows 4g .. 4g+3
+// (byte j: window 4g + j; 9 where absent), their cotangents (0 where
+// absent), and window 4g+4's where this lane takes it itself.
 template <typename T>
-__global__ void stem_pool_bwd_kernel(const signed char* __restrict__ idx,
-                                     const T* __restrict__ g,
-                                     const float* __restrict__ scale,
-                                     T* __restrict__ dy, int C, int hc,
-                                     int wc, int hp, int wp) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  if (q >= wp) return;
-  const int p = blockIdx.y;
-  const long long t = blockIdx.z;  // plane index b * C + c
-  const float sc = scale[blockIdx.z % (unsigned)C];
-  const signed char* ip = idx + t * hp * wp;
-  const T* gp = g + t * hp * wp;
+struct WinRow {
+  unsigned codes;
+  Quad<T> g;
+  int code4;
+  T g4;
+};
 
-  // window (p + a, q + b): its code, and its cotangent (0 where absent)
-  int code[2][2];
-  float gv[2][2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const bool live = p + a < hp && q + b < wp;
-      const long long o = (long long)(p + a) * wp + (q + b);
-      code[a][b] = live ? ip[o] : 9;
-      gv[a][b] = live ? to_float(gp[o]) : 0.f;
-    }
+// The same row unpacked: codes and fp32 cotangents of windows 4g .. 4g+4.
+struct Windows {
+  int c[kGroupCols + 1];
+  float v[kGroupCols + 1];
+};
+
+// The 8 conv columns 8g .. 8g+7 of one conv row, for one or two 16-byte
+// stores.
+template <typename T>
+struct alignas(16) Octet {
+  T e[2 * kGroupCols];
+};
+
+template <typename T>
+__device__ __forceinline__ Quad<T> load_quad(const T* p) {
+  Quad<T> q;
+  if constexpr (sizeof(Quad<T>) == 8) {
+    *reinterpret_cast<uint2*>(&q) = __ldg(reinterpret_cast<const uint2*>(p));
+  } else {
+    *reinterpret_cast<uint4*>(&q) = __ldg(reinterpret_cast<const uint4*>(p));
   }
-  // the code of conv element (2p + r, 2q + c) in window (p + a, q + b):
-  // row offset r - 2a + 1, column offset c - 2b + 1, row-major
-#define STEM_TAKE(r, c, a, b)                                   \
-  if (code[a][b] == 3 * ((r) - 2 * (a) + 1) + ((c) - 2 * (b) + 1)) \
-    acc += gv[a][b];
-  T* row = dy + (t * hc + 2 * p) * wc + 2 * q;
-  const bool col1 = 2 * q + 1 < wc;
-  float acc = 0.f;
-  STEM_TAKE(0, 0, 0, 0)
-  row[0] = from_float<T>(__fmul_rn(acc, sc));
-  if (col1) {
-    acc = 0.f;
-    STEM_TAKE(0, 1, 0, 0)
-    STEM_TAKE(0, 1, 0, 1)
-    row[1] = from_float<T>(__fmul_rn(acc, sc));
-  }
-  if (2 * p + 1 < hc) {
-    row += wc;
-    acc = 0.f;
-    STEM_TAKE(1, 0, 0, 0)
-    STEM_TAKE(1, 0, 1, 0)
-    row[0] = from_float<T>(__fmul_rn(acc, sc));
-    if (col1) {
-      acc = 0.f;
-      STEM_TAKE(1, 1, 0, 0)
-      STEM_TAKE(1, 1, 0, 1)
-      STEM_TAKE(1, 1, 1, 0)
-      STEM_TAKE(1, 1, 1, 1)
-      row[1] = from_float<T>(__fmul_rn(acc, sc));
-    }
-  }
-#undef STEM_TAKE
+  return q;
 }
 
-// The grid over a [planes, rows, width] map, or a zero grid when a
-// dimension exceeds the card's limits (the caller then reports
+// Window row r of a group (q0 = 4g): one 32-bit load of the codes and one
+// 8- or 16-byte load of the cotangents where vec (the pooled width a
+// multiple of 4, both bases aligned), scalar loads otherwise; window
+// q0 + 4 too where own_right.
+template <typename T>
+__device__ __forceinline__ void load_window_row(const signed char* ip,
+                                                const T* gp, int r, bool live,
+                                                int q0, int wp, bool vec,
+                                                bool own_right, WinRow<T>& w) {
+  w.codes = 0x09090909u;
+  w.code4 = 9;
+#pragma unroll
+  for (int j = 0; j < kGroupCols; ++j) w.g.e[j] = from_float<T>(0.f);
+  w.g4 = from_float<T>(0.f);
+  if (!live) return;
+  const size_t o = (size_t)r * wp + q0;
+  if (vec) {
+    w.codes = __ldg(reinterpret_cast<const unsigned*>(ip + o));
+    w.g = load_quad(gp + o);
+  } else {
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < kGroupCols; ++j) {
+      if (q0 + j < wp) {
+        c |= (unsigned)(unsigned char)ip[o + j] << (8 * j);
+        w.g.e[j] = gp[o + j];
+      } else {
+        c |= 9u << (8 * j);
+      }
+    }
+    w.codes = c;
+  }
+  if (own_right && q0 + kGroupCols < wp) {
+    w.code4 = ip[o + kGroupCols];
+    w.g4 = gp[o + kGroupCols];
+  }
+}
+
+// Unpacks a loaded row; window 4g+4 is the next lane's window 4(g+1),
+// passed by a warp shuffle, save where this lane took it itself (a warp's
+// last lane) and in the plane's last group, where it lies past the row's
+// end. Every lane of the warp calls it together (the shuffle).
+template <typename T>
+__device__ __forceinline__ Windows unpack(const WinRow<T>& w, bool own_right,
+                                          bool last_group) {
+  Windows u;
+#pragma unroll
+  for (int j = 0; j < kGroupCols; ++j) {
+    u.c[j] = (int)((w.codes >> (8 * j)) & 0xffu);
+    u.v[j] = to_float(w.g.e[j]);
+  }
+  int c4 = __shfl_down_sync(kFullMask, u.c[0], 1);
+  float v4 = __shfl_down_sync(kFullMask, u.v[0], 1);
+  if (own_right) {
+    c4 = w.code4;
+    v4 = to_float(w.g4);
+  }
+  if (last_group) {
+    c4 = 9;
+    v4 = 0.f;
+  }
+  u.c[kGroupCols] = c4;
+  u.v[kGroupCols] = v4;
+  return u;
+}
+
+// Conv rows 2p (top) and 2p+1 (bot), columns 8g .. 8g+7, from window rows
+// p (a) and p+1 (b). Conv row 2p lies only in window row p, 2p+1 in rows p
+// and p+1; conv column 2q only in window column q, 2q+1 in q and q+1. A
+// window routes to the conv element at row offset dr, column offset dc
+// (0..2 from its top-left, row 2p'-1, column 2q'-1) when its code is
+// 3 dr + dc. Each sum is taken in fp32 in the order of ascending p', then
+// q' (max_pool2d's own backward's), then scaled once.
+__device__ __forceinline__ void route(const Windows& a, const Windows& b,
+                                      float sc, float top[2 * kGroupCols],
+                                      float bot[2 * kGroupCols]) {
+#pragma unroll
+  for (int j = 0; j < kGroupCols; ++j) {
+    float acc = 0.f;
+    if (a.c[j] == 4) acc += a.v[j];
+    top[2 * j] = __fmul_rn(acc, sc);
+    acc = 0.f;
+    if (a.c[j] == 5) acc += a.v[j];
+    if (a.c[j + 1] == 3) acc += a.v[j + 1];
+    top[2 * j + 1] = __fmul_rn(acc, sc);
+    acc = 0.f;
+    if (a.c[j] == 7) acc += a.v[j];
+    if (b.c[j] == 1) acc += b.v[j];
+    bot[2 * j] = __fmul_rn(acc, sc);
+    acc = 0.f;
+    if (a.c[j] == 8) acc += a.v[j];
+    if (a.c[j + 1] == 6) acc += a.v[j + 1];
+    if (b.c[j] == 2) acc += b.v[j];
+    if (b.c[j + 1] == 0) acc += b.v[j + 1];
+    bot[2 * j + 1] = __fmul_rn(acc, sc);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ Octet<T> to_octet(const float v[2 * kGroupCols]) {
+  Octet<T> o;
+#pragma unroll
+  for (int e = 0; e < 2 * kGroupCols; ++e) o.e[e] = from_float<T>(v[e]);
+  return o;
+}
+
+// One conv row's 8 columns from registers: 16-byte stores where vec (the
+// whole group inside the row, the row and the base 16-byte aligned),
+// scalar stores otherwise.
+template <typename T>
+__device__ __forceinline__ void store_row(T* row, int col0, int wc, bool vec,
+                                          const float v[2 * kGroupCols]) {
+  const Octet<T> o = to_octet<T>(v);
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < (int)(sizeof(o) / 16); ++k)
+      reinterpret_cast<uint4*>(row + col0)[k] =
+          reinterpret_cast<const uint4*>(o.e)[k];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 2 * kGroupCols; ++e)
+      if (col0 + e < wc) row[col0 + e] = o.e[e];
+  }
+}
+
+// The staged store (fp32): each lane puts its 8 columns in shared memory,
+// and the first lane of each run of lanes that write one conv row
+// contiguously (consecutive groups of one row) copies the run out with one
+// TMA bulk store. Every lane of the warp calls it together, once for each
+// buffer.
+template <typename T>
+__device__ __forceinline__ void stage_row(uint4* stage, T* row, bool live,
+                                          int col0, int wc, bool vec,
+                                          unsigned g,
+                                          const float v[2 * kGroupCols]) {
+  constexpr int kWords = (int)(sizeof(Octet<T>) / 16);
+  const unsigned lane = threadIdx.x & 31;
+  const bool bulk = live && vec;
+  const Octet<T> o = to_octet<T>(v);
+  uint4* mine = stage + threadIdx.x * kWords;
+  if (bulk) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k)
+      mine[k] = reinterpret_cast<const uint4*>(o.e)[k];
+  } else if (live) {
+    store_row(row, col0, wc, false, v);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncwarp();
+  const unsigned vecs = __ballot_sync(kFullMask, bulk);
+  const unsigned starts =
+      __ballot_sync(kFullMask, bulk && (lane == 0 || g == 0));
+  if ((starts >> lane) & 1u) {
+    const unsigned stop =
+        lane == 31 ? 0u : (starts | ~vecs) & (~0u << (lane + 1));
+    const unsigned end = stop ? (unsigned)__ffs(stop) - 1 : 32u;
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            row + col0),
+        "r"((unsigned)__cvta_generic_to_shared(mine)),
+        "r"((end - lane) * kWords * 16)
+        : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Row 4 of the kernel table, the gather
+//   dy[b, c, i, j] = scale[c] * sum of g[b, c, p', q'] over the windows
+//                    (p', q') that hold (i, j) and whose idx points at it
+// (see route). A thread owns pooled row p, columns 4g .. 4g+3, of one plane:
+// it loads window rows p and p+1 and writes conv rows 2p and 2p+1, columns
+// 8g .. 8g+7, so each conv element once: bf16 straight from registers,
+// fp32 by stage_row. vec_in: idx and g allow the 32-bit and 8/16-byte
+// loads of a window row; vec_out: dy and its rows are 16-byte aligned. No
+// atomics.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    stem_pool_bwd_kernel(const signed char* __restrict__ idx,
+                         const T* __restrict__ g,
+                         const float* __restrict__ scale, T* __restrict__ dy,
+                         int C, int hc, int wc, int hp, int wp,
+                         unsigned planes, unsigned rows, unsigned groups,
+                         bool vec_in, bool vec_out) {
+  constexpr bool kStaged = sizeof(T) == 4;
+  constexpr int kWords = (int)(sizeof(Octet<T>) / 16);
+  __shared__ uint4 stage[kStaged ? 2 : 1][kStaged ? kThreads * kWords : 1];
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned gi = tid % groups;
+  const unsigned rest = tid / groups;
+  const unsigned t = rest / rows;       // plane b * C + c
+  const int p = (int)(rest % rows);
+  const bool live = t < planes;
+  const bool own_right = (threadIdx.x & 31) == 31;
+  const bool last_group = gi + 1 == groups;
+  const int q0 = kGroupCols * (int)gi;
+  const int col0 = 2 * q0;
+  const bool vec = vec_out && col0 + 2 * kGroupCols <= wc;
+  const size_t plane = live ? t : 0;
+  const signed char* ip = idx + plane * hp * wp;
+  const T* gp = g + plane * hp * wp;
+  const float sc = live ? scale[t % (unsigned)C] : 0.f;
+
+  WinRow<T> a, b;
+  load_window_row(ip, gp, p, live, q0, wp, vec_in, own_right, a);
+  load_window_row(ip, gp, p + 1, live && p + 1 < hp, q0, wp, vec_in,
+                  own_right, b);
+  float top[2 * kGroupCols], bot[2 * kGroupCols];
+  route(unpack(a, own_right, last_group), unpack(b, own_right, last_group),
+        sc, top, bot);
+  T* row = dy + (plane * hc + 2 * p) * wc;
+  if constexpr (kStaged) {
+    stage_row(stage[0], row, live, col0, wc, vec, gi, top);
+    stage_row(stage[1], row + wc, live && 2 * p + 1 < hc, col0, wc, vec, gi,
+              bot);
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  } else if (live) {
+    store_row(row, col0, wc, vec, top);
+    if (2 * p + 1 < hc) store_row(row + wc, col0, wc, vec, bot);
+  }
+}
+
+// The launch of strips of ``rows`` pooled rows: ok false
+// when a dimension is out of range (the caller then reports
 // cudaErrorInvalidValue).
-dim3 grid_for(int planes, int rows, int width) {
-  if (planes <= 0 || rows <= 0 || width <= 0 || planes > 65535 ||
-      rows > 65535) {
-    return dim3(0, 0, 0);
-  }
-  return dim3(col_blocks(width), (unsigned)rows, (unsigned)planes);
-}
-
-// The forward's launch: ok false when a dimension is out of range (the
-// caller then reports cudaErrorInvalidValue).
-struct FwdGrid {
+struct StripGrid {
   bool ok;
   unsigned blocks, planes, strips, groups;
 };
 
-FwdGrid fwd_grid(int B, int C, int hc, int wc, int hp, int wp) {
-  FwdGrid f{false, 0, 0, 0, 0};
+StripGrid strip_grid(int B, int C, int hc, int wc, int hp, int wp,
+                     int rows) {
+  StripGrid f{false, 0, 0, 0, 0};
   if (B <= 0 || C <= 0 || hc <= 0 || wc <= 0 ||
       hp != (hc - 1) / 2 + 1 || wp != (wc - 1) / 2 + 1) {
     return f;
   }
   const long long planes = (long long)B * C;
-  const long long strips = (hp + kStripRows - 1) / kStripRows;
+  const long long strips = (hp + rows - 1) / rows;
   const long long groups = (wp + kGroupCols - 1) / kGroupCols;
   const long long blocks =
-      (planes * strips * groups + kFwdThreads - 1) / kFwdThreads;
-  if (blocks * kFwdThreads > 0xffffffffLL) return f;   // 32-bit thread ids
-  f = FwdGrid{true, (unsigned)blocks, (unsigned)planes, (unsigned)strips,
-              (unsigned)groups};
+      (planes * strips * groups + kThreads - 1) / kThreads;
+  if (blocks * kThreads > 0xffffffffLL) return f;   // 32-bit thread ids
+  f = StripGrid{true, (unsigned)blocks, (unsigned)planes, (unsigned)strips,
+                (unsigned)groups};
   return f;
 }
 
@@ -389,17 +591,33 @@ template <typename T, bool kIdx>
 int launch_fwd(const void* y, const float* scale, const float* shift,
                void* out, void* idx, int B, int C, int hc, int wc, int hp,
                int wp, void* stream) {
-  const FwdGrid f = fwd_grid(B, C, hc, wc, hp, wp);
+  const StripGrid f = strip_grid(B, C, hc, wc, hp, wp, kStripRows);
   if (!f.ok) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec_in = aligned(y, 16) && (wc * sizeof(T)) % 16 == 0;
   const bool vec_out = wp % kGroupCols == 0 &&
                        aligned(out, kGroupCols * sizeof(T)) &&
                        (!kIdx || aligned(idx, kGroupCols));
   stem_pool_fwd_kernel<T, kIdx>
-      <<<f.blocks, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<f.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(y), scale, shift, static_cast<T*>(out),
           static_cast<signed char*>(idx), C, hc, wc, hp, wp, f.planes,
           f.strips, f.groups, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* idx, const void* g, const float* scale, void* dy,
+               int B, int C, int hc, int wc, int hp, int wp, void* stream) {
+  const StripGrid f = strip_grid(B, C, hc, wc, hp, wp, 1);
+  if (!f.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_in = wp % kGroupCols == 0 && aligned(idx, kGroupCols) &&
+                      aligned(g, kGroupCols * sizeof(T));
+  const bool vec_out = aligned(dy, 16) && (wc * sizeof(T)) % 16 == 0;
+  stem_pool_bwd_kernel<T>
+      <<<f.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const signed char*>(idx), static_cast<const T*>(g),
+          scale, static_cast<T*>(dy), C, hc, wc, hp, wp, f.planes, f.strips,
+          f.groups, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -445,23 +663,12 @@ extern "C" int odtk_stem_pool_bwd(const void* idx, const void* g,
                                   const float* scale, void* dy, int dtype,
                                   int B, int C, int hc, int wc, int hp, int wp,
                                   void* stream) {
-  if (hp != (hc - 1) / 2 + 1 || wp != (wc - 1) / 2 + 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid = grid_for(B * C, hp, wp);  // one thread per 2x2 quad
-  if (grid.x == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const signed char* ix = static_cast<const signed char*>(idx);
   if (dtype == 0) {
-    stem_pool_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        ix, static_cast<const float*>(g), scale, static_cast<float*>(dy), C,
-        hc, wc, hp, wp);
-  } else if (dtype == 1) {
-    stem_pool_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        ix, static_cast<const __nv_bfloat16*>(g), scale,
-        static_cast<__nv_bfloat16*>(dy), C, hc, wc, hp, wp);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bwd<float>(idx, g, scale, dy, B, C, hc, wc, hp, wp, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(idx, g, scale, dy, B, C, hc, wc, hp, wp,
+                                     stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

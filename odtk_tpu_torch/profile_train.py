@@ -20,7 +20,10 @@ gradients clipped to a global norm of 25. It measures, in this order:
    ms per step between CUDA events, the median host time to enqueue one
    step, and, from a ``torch.profiler`` trace of 5 steps, the device
    time per step by kernel family (``profile_infer.FAMILIES``) and by
-   kernel of the package's own CUDA kernels;
+   kernel of the package's own CUDA kernels, and for each of those its
+   launches' device ms and the device event that ran just before each
+   with its ms (a copy there may be a layout change of its input); and
+   the layout of the cotangent that the step hands the stem's backward;
 3. ``train``: the ``train`` loop, unprofiled, for 24 steps: its median
    ms per step after the first 4 (the loop's own step intervals), and
    the device's idle share there, estimated as 1 - (device ms per step
@@ -41,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-from .profile_infer import add_backbone_arg, device_breakdown, write_images
+from .profile_infer import (_short, add_backbone_arg, device_breakdown,
+                            device_events, family, write_images)
 
 IMAGES = 32
 BATCH = 8
@@ -137,7 +141,53 @@ def device_phase(model, batch, device, clip_grads):
         'device_ms_per_step': sum(by_family.values()),
         'by_family_ms_per_step': by_family,
         'by_kernel_ms_per_step': by_kernel,
+        'own_launches': own_launches(prof),
+        'stem_cotangent': stem_cotangent(run),
     }
+
+
+def own_launches(prof):
+    """{kernel: {'ms': [device ms of each launch], 'after': {name of the
+    device event just before it: count}, 'after_ms': [that event's device
+    ms]}} for the package's own kernels (the families whose name ends in
+    'kernel'), in the trace's order."""
+    events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+    out = {}
+    for before, e in zip([None] + events[:-1], events):
+        if not family(e.name).endswith('kernel'):
+            continue
+        row = out.setdefault(_short(e.name),
+                             {'ms': [], 'after': {}, 'after_ms': []})
+        row['ms'].append(e.time_range.elapsed_us() / 1e3)
+        if before is not None:
+            name = _short(before.name)
+            row['after'][name] = row['after'].get(name, 0) + 1
+            row['after_ms'].append(before.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def stem_cotangent(run):
+    """[{shape, stride, dtype, contiguous}] of each cotangent that one
+    call of run hands the stem's backward (its wrapper wrapped for the
+    call)."""
+    from .ops.kernels import stem
+
+    seen, real = [], stem.bn_relu_pool_bwd
+
+    def spy(idx, g, scale, conv_hw):
+        seen.append({'shape': list(g.shape), 'stride': list(g.stride()),
+                     'dtype': str(g.dtype), 'contiguous': g.is_contiguous()})
+        return real(idx, g, scale, conv_hw)
+
+    spy.launches = real.launches
+    stem.bn_relu_pool_bwd = spy
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        stem.bn_relu_pool_bwd = real
+        real.launches = spy.launches
+    return seen
 
 
 def train_phase(model, img_dir, ann, ckpt, device, clip_grads):
@@ -201,6 +251,11 @@ def main(argv=None):
               f'{100 * v / dp["device_ms_per_step"]:5.1f}%')
     for k, v in dp['by_kernel_ms_per_step'].items():
         print(f'    {k:32s} {v:8.4f} ms/step')
+    for k, v in dp['own_launches'].items():
+        print(f'    {k}: launches ' + ', '.join(f'{ms:.4f}' for ms in v['ms'])
+              + f' ms; after {v["after"]}, '
+              + ', '.join(f'{ms:.4f}' for ms in v['after_ms']) + ' ms')
+    print(f'  stem backward cotangent: {dp["stem_cotangent"]}')
     print(f'train loop: {out["train"]["ms_per_step_median"]:.3f} ms/step, '
           f'device idle share (est.) '
           f'{100 * out["train"]["device_idle_share_est"]:.1f}%')

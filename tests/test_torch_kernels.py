@@ -223,13 +223,29 @@ def test_stem_idx_kernel_equals_plain(cuda_device, dtype):
         assert torch.equal(idx, want_idx)
 
 
+def _off_grid(t):
+    """A contiguous copy of t one element past an allocation's start, so
+    off the 16-byte grid."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+# the train batch's conv1 shape; odd Hc and Wc with one group and with wp
+# 10, not a multiple of 4 (the scalar loads and stores); 73 groups a
+# plane, so a plane's groups straddle warps, and odd Hc (the last pooled
+# row writes one conv row); even sizes at 16-byte rows
+STEM_BWD_SHAPES = [(2, 64, 448, 576), (1, 64, 13, 9), (1, 3, 13, 9),
+                   (2, 5, 17, 19), (1, 64, 449, 577), (2, 4, 40, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_stem_bwd_kernel_equals_plain_autograd(cuda_device, dtype):
     """The routing backward equals the autograd of the plain version:
     both sum the <= 4 routed cotangents in fp32 in ascending window
-    order, then scale and round once."""
-    for shape in [(2, 64, 448, 576), (1, 64, 13, 9)]:
+    order, then scale and round once. Again with the cotangent and the
+    codes one element off the 16-byte grid (the scalar loads)."""
+    for shape in STEM_BWD_SHAPES:
         y, scale, shift = _stem_case(shape, dtype, cuda_device, seed=2)
         g = torch.randn(_pool_shape(shape),
                         generator=torch.Generator().manual_seed(3))
@@ -242,6 +258,11 @@ def test_stem_bwd_kernel_equals_plain_autograd(cuda_device, dtype):
                                     yr, g)
         assert got.dtype == dtype
         assert torch.equal(got, want)
+        _, idx = kstem.bn_relu_pool_idx(y, scale, shift)
+        off = kstem.bn_relu_pool_bwd(_off_grid(idx), _off_grid(g), scale,
+                                     shape[2:])
+        torch.cuda.synchronize()
+        assert torch.equal(off, want)
 
 
 def _stem_nan_case(shape, dtype, device, seed=4):
@@ -284,7 +305,8 @@ def test_stem_plain_nan_rule():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 64, 448, 576), (1, 3, 13, 9)])
+@pytest.mark.parametrize('shape', [(2, 64, 448, 576), (1, 3, 13, 9),
+                                   (2, 5, 17, 19), (1, 64, 449, 577)])
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_stem_kernels_carry_nan(cuda_device, dtype, shape):
     """Rows 2, 3 and 4 on NaN-planted inputs: the forwards equal the plain
