@@ -1,0 +1,9 @@
+"""Device ms a request in elementwise kernels (batch-norm affine,
+ReLU, residual adds, bias, copies, reductions: what the families table
+leaves), from the trace."""
+
+from perfbench.lib.readers import family_ms
+
+
+def read(ctx):
+    return family_ms(ctx, 'serve', 'elementwise')
